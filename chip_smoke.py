@@ -8,21 +8,30 @@ final line:
 
 0. The card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions. Requires ``torch.cuda.is_available()``.
-1. Builds both CUDA kernels from ``sasktran2_tpu_torch/csrc`` with nvcc.
+1. Builds both CUDA kernels from ``sasktran2_tpu_torch/csrc`` with nvcc,
+   one nvcc process per source, started together.
 2. Thomas kernel (f32 and f64) against its plain PyTorch twin and an f64
    truth, at the engine's shape and at the JAX package's test shapes, and
    the autograd backward (which launches the kernel) against the plain
    twin's autograd.
 3. Jacobi kernel (f32 and f64) against numpy ``eigvalsh``, the
-   eigen-residual, the orthogonality of V, and the plain twin.
+   eigen-residual, the orthogonality of V, and the plain twin; and the
+   time of ``torch.linalg.eigh`` on the same matrices as one contiguous
+   [P*W, 8, 8] batch, the one PyTorch call that computes the same
+   function (timed here only; the port never calls it), with MAGMA where
+   PyTorch's default cuSOLVER route refuses a batch that size.
 4. The port's engine end to end: 16 streams, P = 100 layers, 4 rays,
    W = 1024 wavelengths, float32, full Jacobians, through
-   ``Engine.calculate_radiance``. Launch counts of both kernels must be
-   > 0; values must be finite, radiance > 0, and radiance and ``wf_*``
+   ``Engine.calculate_radiance`` of an engine built with no ``device``
+   (so on ``cuda``). Launch counts of both kernels must be > 0, and
+   neither ``jax`` nor any ``sasktran2_tpu`` module may be loaded; values must be finite, radiance > 0, and radiance and ``wf_*``
    must match the JAX float64 golden values at 8 wavelengths. The same
    case in float64 at those 8 wavelengths must match them to 1e-8.
 5. Times: the median of 5 warm engine calls (wavelengths/s) and each
-   kernel beside its plain twin at the engine's shapes.
+   kernel beside its plain twin at the engine's shapes, with its launches
+   per call, its bound (the larger of the bytes it must move over
+   3.35 TB/s and its FP32 operations over 67 TFLOP/s, the H100 SXM's
+   published peaks) and the share of that bound it reaches.
 
 The line before the last is the kernel record as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -37,10 +46,40 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def thomas_bound(P, K, W, itemsize):
+    """lo, di, up and r read once, x written once; per (layer, lane) the
+    carry products 2K^3 + 2K^2, the Gauss-Jordan sweep K (2K+1)(2K-1) and
+    the back substitution 2K^2 FLOPs."""
+    nbytes = (3 * P * K * K * W + 2 * P * K * W) * itemsize
+    flops = P * W * (2 * K**3 + 4 * K * K + K * (2 * K + 1) * (2 * K - 1))
+    return bound(nbytes, flops)
+
+
+def jacobi_bound(P, n, W, sweeps, itemsize):
+    """a read once, w and v written once; per matrix and sweep, n-1
+    rounds of 3 n^2 two-term rotations (3 FLOPs each) and n/2 rotation
+    angles (about 10 FLOPs each), then n(n-1) FLOPs of symmetrization."""
+    nbytes = (2 * P * n * n * W + P * n * W) * itemsize
+    per_sweep = (n - 1) * (9 * n * n + 5 * n) + n * (n - 1)
+    return bound(nbytes, P * W * sweeps * per_sweep)
 
 
 def fail(msg):
@@ -71,10 +110,11 @@ def ptxas_summary(log_path):
     out, name, frame = [], None, ""
     with open(log_path) as f:
         for ln in f:
-            m = re.search(r"([a-z]+_kernel)I([fd])Li(\d+)E", ln)
+            m = re.search(r"([a-z]+_kernel)I([fd])((?:L[ib]\d+E)+)E", ln)
             if "Compiling entry function" in ln and m:
                 dtype = "float" if m.group(2) == "f" else "double"
-                name = f"{m.group(1)}<{dtype}, {m.group(3)}>"
+                args = re.findall(r"L[ib](\d+)E", m.group(3))
+                name = f"{m.group(1)}<{', '.join([dtype, *args])}>"
             elif "stack frame" in ln and name:
                 frame = ln.strip()
             elif "Used" in ln and name:
@@ -170,9 +210,14 @@ def phase_thomas(dev, label):
     check(gerr <= 1e-9 and launched == 2, "thomas autograd")
 
     a32 = [t.to(f32) for t in thomas_inputs(100, 16, 1024, 3, f64, dev, 13.0)]
-    record["ms"] = cuda_ms(lambda: thomas_cuda.thomas_solve(*a32), 10)
+    record["ms"] = cuda_ms(lambda: thomas_cuda.thomas_solve(*a32), 20)
     record["plain_ms"] = cuda_ms(
         lambda: thomas_cuda.thomas_solve_plain(*a32), 3)
+    record["bound_ms"], record["bound_by"] = thomas_bound(100, 16, 1024, 4)
+    # no single PyTorch call solves the block-tridiagonal system: a dense
+    # torch.linalg.solve of the assembled [1024, 1600, 1600] system gives
+    # the same x at about 10^4 times the work and 10 GB
+    record["library_ms"] = None
     return record
 
 
@@ -225,10 +270,37 @@ def phase_jacobi(dev, label):
         check(rel64 <= 1e-10, f"jacobi f64 n={n}")
         if (P, n, W) == (100, 8, 1024):
             record["max_abs_err"] = kp
-            record["ms"] = cuda_ms(lambda: jacobi_cuda.jacobi_eigh(t32, 7), 10)
+            record["ms"] = cuda_ms(lambda: jacobi_cuda.jacobi_eigh(t32, 7), 20)
             record["plain_ms"] = cuda_ms(
                 lambda: jacobi_cuda.jacobi_eigh_plain(t32, 7), 3)
+            record["bound_ms"], record["bound_by"] = jacobi_bound(
+                P, n, W, 7, 4)
+            batch = t32.permute(0, 3, 1, 2).reshape(P * W, n, n).contiguous()
+            record["library_ms"] = library_eigh_ms(batch, label)
     return record
+
+
+def library_eigh_ms(batch, label):
+    """Time of ``torch.linalg.eigh`` on ``batch`` with PyTorch's default
+    linear-algebra backend, or, where that call refuses the batch, with
+    MAGMA; None where neither computes it."""
+    import torch
+
+    for backend in ("default", "magma"):
+        try:
+            torch.backends.cuda.preferred_linalg_library(backend)
+            ms = cuda_ms(lambda: torch.linalg.eigh(batch), 5)
+        except RuntimeError as e:
+            print(f"[{label}] torch.linalg.eigh {tuple(batch.shape)} with the "
+                  f"{backend} backend failed: {str(e).splitlines()[0][:160]}",
+                  flush=True)
+            continue
+        finally:
+            torch.backends.cuda.preferred_linalg_library("default")
+        print(f"[{label}] torch.linalg.eigh {tuple(batch.shape)} f32, "
+              f"{backend} backend: {ms:.3f} ms", flush=True)
+        return ms
+    return None
 
 
 def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label):
@@ -283,13 +355,18 @@ def main():
     print(f"[{label}] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
 
-    # --- phase 1: build ----------------------------------------------------
-    for name in ("thomas", "jacobi"):
-        t0 = time.perf_counter()
-        path = _build.build(name)
-        dt = time.perf_counter() - t0
-        print(f"[{label}] built {name}: {os.path.relpath(path, HERE)} in "
-              f"{dt:.1f} s", flush=True)
+    # --- phase 1: build, one nvcc per source, all started together ----------
+    t0 = time.perf_counter()
+    names = ("thomas", "jacobi")
+    try:
+        with ThreadPoolExecutor(len(names)) as pool:
+            paths = list(pool.map(_build.build, names))
+    except RuntimeError as e:
+        fail(f"kernel build: {e}")
+    dt = time.perf_counter() - t0
+    for name, path in zip(names, paths):
+        print(f"[{label}] built {name}: {os.path.relpath(path, HERE)} "
+              f"({dt:.1f} s for both)", flush=True)
         for ln in ptxas_summary(path[:-3] + ".log"):
             print(f"[{label}]     ptxas {ln}")
 
@@ -300,8 +377,10 @@ def main():
     # --- phase 4: the engine end to end --------------------------------------
     wl = smoke_wavelengths()
     config, geometry, viewing, atmo = smoke_case(sk, "float32", wl)
-    engine = sk.Engine(config, geometry, viewing, device=dev)
-    print(f"[{label}] ray tracer: {engine.ray_tracer}", flush=True)
+    engine = sk.Engine(config, geometry, viewing)  # no device: the card
+    check(engine._device.type == "cuda", "the engine did not default to cuda")
+    print(f"[{label}] engine device {engine._device}; ray tracer: "
+          f"{engine.ray_tracer}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     thomas_cuda.thomas_solve.launches = 0
     jacobi_cuda.jacobi_eigh.launches = 0
@@ -319,6 +398,11 @@ def main():
           f"device memory {peak_gb:.2f} GB", flush=True)
     check(launches["thomas"] > 0 and launches["jacobi"] > 0,
           "a kernel of the path was not launched")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "sasktran2_tpu"))
+    print(f"[{label}] jax or sasktran2_tpu modules loaded: {foreign}",
+          flush=True)
+    check(not foreign, "the port loaded jax or the JAX package")
     rad = out["radiance"].to_numpy()
     wf_names = [k for k in out.keys() if k.startswith("wf_")]
     check(rad.shape == (1024, 4, 1), f"radiance shape {rad.shape}")
@@ -363,10 +447,14 @@ def main():
     print(f"[{label}] engine radiance only: median {med_nojac:.4f} s = "
           f"{1024 / med_nojac:.1f} wavelengths/s", flush=True)
     for name, rec in (("thomas", thomas_rec), ("jacobi", jacobi_rec)):
-        print(f"[{label}] {name} kernel {rec['ms']:.3f} ms vs plain "
-              f"{rec['plain_ms']:.3f} ms at the engine's shape, f32",
-              flush=True)
-    check("jax" not in sys.modules, "jax was imported")
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.3f} ms")
+        print(f"[{label}] {name} kernel {rec['ms']:.3f} ms per launch, "
+              f"{launches[name]} launches per call; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share of "
+              f"bound {rec['bound_ms'] / rec['ms']:.3f}; plain "
+              f"{rec['plain_ms']:.3f} ms; library call {lib}; at the "
+              f"engine's shape, f32", flush=True)
 
     kernels = [
         {"name": "thomas_block_tridiag_solve", "route": "cuda",

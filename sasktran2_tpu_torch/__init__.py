@@ -3,19 +3,21 @@
 Same user contract as the JAX package, so a user changes one import line:
 
     import sasktran2_tpu_torch as sk
-    engine = sk.Engine(config, geometry, viewing, device="cuda")
-    out = engine.calculate_radiance(atmosphere)   # radiance + wf_*
+    engine = sk.Engine(config, geometry, viewing)   # runs on "cuda"
+    out = engine.calculate_radiance(atmosphere)    # radiance + wf_*
 
-The configuration, geometry, viewing-geometry, atmosphere and dataset
-classes are the JAX package's own jax-free modules, re-exported here; the
-engine, the solver and the constituents the scalar slice needs are the
-port's. The block-tridiagonal Thomas solve and the tournament-Jacobi
-eigensolve run as hand-written CUDA kernels (``csrc/``) on a GPU. This
-package never imports jax.
+The engine runs on the GPU unless the caller passes ``device="cpu"``; with
+no GPU and no device named it raises. The configuration, geometry,
+viewing-geometry, atmosphere, dataset and ray-tracing modules are the
+port's own copies of the JAX package's numpy modules; the engine, the
+solver and the constituents of the scalar slice are the port's. The
+block-tridiagonal Thomas solve and the tournament-Jacobi eigensolve run as
+hand-written CUDA kernels (``csrc/``) on a GPU. This package imports
+nothing of jax or of ``sasktran2_tpu``.
 """
 
-from sasktran2_tpu.atmosphere import Atmosphere
-from sasktran2_tpu.config import (
+from .atmosphere import Atmosphere
+from .config import (
     Config,
     EmissionSource,
     FluxType,
@@ -28,9 +30,10 @@ from sasktran2_tpu.config import (
     SpectralGridMode,
     StokesBasis,
 )
-from sasktran2_tpu.dataset import DataArray, Dataset
-from sasktran2_tpu.geometry import Geometry1D
-from sasktran2_tpu.viewinggeo import (
+from .dataset import DataArray, Dataset
+from .geometry import Geometry1D
+from .viewinggeo import (
+    FluxObserverSolar,
     GroundViewingSolar,
     SolarAnglesObserverLocation,
     TangentAltitudeSolar,
@@ -47,6 +50,7 @@ __all__ = [
     "Dataset",
     "EmissionSource",
     "Engine",
+    "FluxObserverSolar",
     "FluxType",
     "Geometry1D",
     "GeometryType",

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..util.interpolation import linear_interpolating_matrix
 from .base import Constituent
 
 
@@ -29,8 +30,6 @@ class LambertianSurface(Constituent):
                 msg = "albedo array length must match the wavelength grid"
                 raise ValueError(msg)
             return self.albedo.copy(), None
-        from sasktran2_tpu.util.interpolation import linear_interpolating_matrix
-
         interp = linear_interpolating_matrix(
             self.wavelengths_nm, atmo.wavelengths_nm, "extend"
         )

@@ -14,9 +14,9 @@ weighting functions through dN/dP, dN/dT.
 from __future__ import annotations
 
 import numpy as np
-from sasktran2_tpu.util.state import EquationOfState
 
 from ..optical.rayleigh import rayleigh_cross_section_bates
+from ..util.state import EquationOfState
 from .base import Constituent
 
 

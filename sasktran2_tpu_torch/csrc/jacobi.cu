@@ -8,27 +8,34 @@
 // eigenvalues w [P, n, W] (the diagonal after the last sweep) and the
 // eigenvectors v [P, n, n, W] (columns). Each sweep runs n-1 rounds of
 // the circle-method tournament (sasktran2_tpu/ops/eigen.py:33-50); a
-// round takes the n/2 disjoint pairs (p, q), computes every pair's angle
-// from the matrix as the round found it,
-//   theta = 0.5 atan2(2 a_pq, a_qq - a_pp),  no rotation where a_pq == 0,
-// then rotates all pair columns, then all pair rows, then the eigenvector
-// columns, in the order of the reference's scan (lanes.py:362-391). The
-// matrix is re-symmetrized after each sweep. The angle uses the atan2
-// form; the Pallas kernel's half-angle tangent gives the same angle.
+// round takes the n/2 disjoint pairs (p, q) and computes every pair's
+// rotation from the matrix as the round found it, in the Pallas kernel's
+// half-angle tangent form (pallas_jacobi.py:72-88): with x = a_qq - a_pp,
+// y = 2 a_pq, r = |(x, y)|,
+//   t = y / (r + x) for x >= 0,  t = (r - x) / y for x < 0,
+//   c = 1 / sqrt(1 + t^2),  s = t c,  and no rotation where a_pq == 0,
+// which is the angle 0.5 atan2(y, x) of the reference's scan, up to
+// rounding. Then A <- J^T A J (columns, then rows, as lanes.py:362-391
+// orders them) and V <- V J.
 //
 // Design: one thread per (layer, lane), P*W threads (102,400 at the
-// 16-stream slice). The matrix and the eigenvector accumulator live in
-// per-thread local memory, sized by the template bound NMAX (8, 16 or 32)
-// so the slice's n = 8 keeps 128 values a thread. Loads and stores
-// coalesce because W is the fastest axis and neighbouring threads hold
-// neighbouring lanes of the same layer.
+// 16-stream slice, n = 8); W is the fastest axis, so neighbouring threads
+// load and store neighbouring addresses. A is kept as its upper triangle
+// only, n(n+1)/2 values: each new entry a'_ij (i <= j) is formed directly
+// from the four old entries a_ij, a_i,pj, a_pi,j, a_pi,pj (pk = partner of
+// k this round) by the column step and then the row step, so the result
+// is symmetric by construction and the per-sweep re-symmetrization of the
+// reference is the identity here. For n <= 8 the order is a template
+// constant and the sweep's rounds and pairs are unrolled completely: the
+// tournament is a compile-time table, every index is a constant, and A
+// (36 values) and V (64) live in registers. For 8 < n <= 32 the rounds
+// stay a loop, the indices are run-time values, and A and V sit in local
+// memory (L1-cached), as in the first version of this kernel.
 //
-// What bounds it: local-memory traffic. The pair indices come from the
-// tournament and are not compile-time constants, so a and v are indexed
-// dynamically and stay in local memory (L1-cached) rather than registers;
-// each round reads and writes 2n entries per pair. Fully unrolled rounds
-// with constant indices, keeping a and v in registers at n = 8, are the
-// next step.
+// What bounds it: FP32 issue. At n = 8 a round is about 340 FMA/MUL
+// instructions a thread for A and V plus 4 rotations (one sqrt, one
+// divide, one rsqrt each); 7 sweeps x 7 rounds over 102,400 matrices is
+// about 2e9 instructions, against 55.7 MB of traffic.
 
 #include <cuda_runtime.h>
 
@@ -36,96 +43,124 @@ namespace {
 
 constexpr int THREADS = 128;
 
-__device__ inline void rotation(float app, float aqq, float apq, float* c, float* s) {
-  if (apq == 0.0f) {
-    *c = 1.0f;
-    *s = 0.0f;
-    return;
-  }
-  const float theta = 0.5f * atan2f(2.0f * apq, aqq - app);
-  sincosf(theta, s, c);
-}
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
 
-__device__ inline void rotation(double app, double aqq, double apq, double* c, double* s) {
-  if (apq == 0.0) {
-    *c = 1.0;
-    *s = 0.0;
-    return;
+template <typename T>
+__device__ __forceinline__ void rotation(T app, T aqq, T apq, T& c, T& s) {
+  const T x = aqq - app;
+  const T y = T(2) * apq;
+  const T r = sqrt_t(x * x + y * y);
+  T t;
+  if (apq == T(0)) {
+    t = T(0);
+  } else if (x >= T(0)) {
+    const T d = r + x;
+    t = y / (d == T(0) ? T(1) : d);
+  } else {
+    t = (r - x) / y;
   }
-  const double theta = 0.5 * atan2(2.0 * apq, aqq - app);
-  sincos(theta, s, c);
+  c = rsqrt_t(T(1) + t * t);
+  s = t * c;
 }
 
 // Player at seat k of round r of the circle method: seat 0 holds player 0,
 // the other seats hold players 1..n-1 rotated right by r.
-__device__ inline int player(int k, int r, int n) {
-  if (k == 0) return 0;
-  const int m = n - 1;
-  return 1 + (((k - 1 - r) % m) + m) % m;
+__host__ __device__ constexpr int player(int k, int r, int n) {
+  return k == 0 ? 0 : 1 + (((k - 1 - r) % (n - 1)) + (n - 1)) % (n - 1);
 }
 
-template <typename T, int NMAX>
-__global__ void jacobi_kernel(const T* __restrict__ a_in, T* __restrict__ w_out,
-                              T* __restrict__ v_out, int P, int n, int W, int sweeps) {
+// Index of (i, j), i <= j, in the packed upper triangle of order n.
+__host__ __device__ constexpr int tri(int i, int j, int n) {
+  return i * n - (i * (i - 1)) / 2 + (j - i);
+}
+
+__host__ __device__ constexpr int sym(int i, int j, int n) {
+  return i <= j ? tri(i, j, n) : tri(j, i, n);
+}
+
+// NMAX: the order (FIXED) or the bound on the run-time order n.
+template <typename T, int NMAX, bool FIXED>
+__global__ void __launch_bounds__(THREADS)
+jacobi_kernel(const T* __restrict__ a_in, T* __restrict__ w_out,
+              T* __restrict__ v_out, int P, int n_rt, int W, int sweeps) {
+  constexpr int UN = FIXED ? NMAX : 1;            // unroll over the order
+  constexpr int UR = FIXED ? NMAX - 1 : 1;        // unroll over the rounds
+  constexpr int UH = FIXED ? NMAX / 2 : 1;        // unroll over the pairs
+  constexpr int TRI = NMAX * (NMAX + 1) / 2;
+  constexpr int UT = FIXED ? TRI : 1;             // unroll over A's entries
+  const int n = FIXED ? NMAX : n_rt;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= static_cast<long long>(P) * W) return;
   const long long p = t / W;
   const int w = static_cast<int>(t - p * W);
   const long long mat = static_cast<long long>(n) * n * W;
 
-  T a[NMAX * NMAX];
+  T a[TRI];
   T v[NMAX * NMAX];
-  T cs[NMAX / 2];
-  T sn[NMAX / 2];
-  int pp[NMAX / 2];
-  int qq[NMAX / 2];
+  T cf[NMAX];  // this round's cosine of the pair holding each index
+  T kf[NMAX];  // -s for the pair's p, +s for its q
+  int pm[NMAX];  // partner of each index this round
 
   const T* a_p = a_in + p * mat + w;
+#pragma unroll (UN)
   for (int i = 0; i < n; ++i) {
+#pragma unroll (UN)
     for (int j = 0; j < n; ++j) {
-      a[i * NMAX + j] = a_p[(i * n + j) * W];
       v[i * NMAX + j] = (i == j) ? T(1) : T(0);
+      if (j >= i) {
+        a[tri(i, j, n)] = T(0.5) * (a_p[(i * n + j) * W] + a_p[(j * n + i) * W]);
+      }
     }
   }
 
-  const int half = n / 2;
+#pragma unroll 1
   for (int sweep = 0; sweep < sweeps; ++sweep) {
+#pragma unroll (UR)
     for (int r = 0; r < n - 1; ++r) {
-      for (int k = 0; k < half; ++k) {
+#pragma unroll (UH)
+      for (int k = 0; k < n / 2; ++k) {
         const int i0 = player(k, r, n);
         const int i1 = player(n - 1 - k, r, n);
         const int pk = i0 < i1 ? i0 : i1;
         const int qk = i0 < i1 ? i1 : i0;
-        pp[k] = pk;
-        qq[k] = qk;
-        rotation(a[pk * NMAX + pk], a[qk * NMAX + qk], a[pk * NMAX + qk], &cs[k], &sn[k]);
+        T c, s;
+        rotation(a[tri(pk, pk, n)], a[tri(qk, qk, n)], a[tri(pk, qk, n)], c, s);
+        cf[pk] = c;
+        cf[qk] = c;
+        kf[pk] = -s;
+        kf[qk] = s;
+        pm[pk] = qk;
+        pm[qk] = pk;
       }
-      // columns p, q of every row
-      for (int k = 0; k < half; ++k) {
-        const int pk = pp[k], qk = qq[k];
-        const T c = cs[k], s = sn[k];
-        for (int i = 0; i < n; ++i) {
-          const T aip = a[i * NMAX + pk];
-          const T aiq = a[i * NMAX + qk];
-          a[i * NMAX + pk] = aip * c - aiq * s;
-          a[i * NMAX + qk] = aiq * c + aip * s;
-        }
-      }
-      // rows p, q of every column
-      for (int k = 0; k < half; ++k) {
-        const int pk = pp[k], qk = qq[k];
-        const T c = cs[k], s = sn[k];
+      // A <- J^T A J on the upper triangle: column step, then row step
+      T an[TRI];
+#pragma unroll (UN)
+      for (int i = 0; i < n; ++i) {
+        const int pi = pm[i];
+#pragma unroll (UN)
         for (int j = 0; j < n; ++j) {
-          const T apj = a[pk * NMAX + j];
-          const T aqj = a[qk * NMAX + j];
-          a[pk * NMAX + j] = apj * c - aqj * s;
-          a[qk * NMAX + j] = aqj * c + apj * s;
+          if (j >= i) {
+            const int pj = pm[j];
+            const T bij = a[sym(i, j, n)] * cf[j] + a[sym(i, pj, n)] * kf[j];
+            const T bpj = a[sym(pi, j, n)] * cf[j] + a[sym(pi, pj, n)] * kf[j];
+            an[tri(i, j, n)] = bij * cf[i] + bpj * kf[i];
+          }
         }
       }
-      // eigenvector columns
-      for (int k = 0; k < half; ++k) {
-        const int pk = pp[k], qk = qq[k];
-        const T c = cs[k], s = sn[k];
+#pragma unroll (UT)
+      for (int e = 0; e < n * (n + 1) / 2; ++e) a[e] = an[e];
+      // V <- V J
+#pragma unroll (UH)
+      for (int k = 0; k < n / 2; ++k) {
+        const int i0 = player(k, r, n);
+        const int i1 = player(n - 1 - k, r, n);
+        const int pk = i0 < i1 ? i0 : i1;
+        const int qk = i0 < i1 ? i1 : i0;
+        const T c = cf[pk], s = kf[qk];
+#pragma unroll (UN)
         for (int i = 0; i < n; ++i) {
           const T vip = v[i * NMAX + pk];
           const T viq = v[i * NMAX + qk];
@@ -134,21 +169,26 @@ __global__ void jacobi_kernel(const T* __restrict__ a_in, T* __restrict__ w_out,
         }
       }
     }
-    for (int i = 0; i < n; ++i) {
-      for (int j = i + 1; j < n; ++j) {
-        const T m = T(0.5) * (a[i * NMAX + j] + a[j * NMAX + i]);
-        a[i * NMAX + j] = m;
-        a[j * NMAX + i] = m;
-      }
-    }
   }
 
   T* w_p = w_out + p * static_cast<long long>(n) * W + w;
   T* v_p = v_out + p * mat + w;
+#pragma unroll (UN)
   for (int i = 0; i < n; ++i) {
-    w_p[i * W] = a[i * NMAX + i];
+    w_p[i * W] = a[tri(i, i, n)];
+#pragma unroll (UN)
     for (int j = 0; j < n; ++j) v_p[(i * n + j) * W] = v[i * NMAX + j];
   }
+}
+
+template <typename T, int NMAX, bool FIXED>
+void launch_n(const void* a, void* w, void* v, int P, int n, int W, int sweeps,
+              cudaStream_t s) {
+  const long long total = static_cast<long long>(P) * W;
+  const int blocks = static_cast<int>((total + THREADS - 1) / THREADS);
+  jacobi_kernel<T, NMAX, FIXED><<<blocks, THREADS, 0, s>>>(
+      static_cast<const T*>(a), static_cast<T*>(w), static_cast<T*>(v), P, n, W,
+      sweeps);
 }
 
 template <typename T>
@@ -156,18 +196,18 @@ int launch(const void* a, void* w, void* v, int P, int n, int W, int sweeps, voi
   if (P < 1 || W < 1 || n < 2 || n > 32 || (n % 2) != 0 || sweeps < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long total = static_cast<long long>(P) * W;
-  const int blocks = static_cast<int>((total + THREADS - 1) / THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* a_t = static_cast<const T*>(a);
-  T* w_t = static_cast<T*>(w);
-  T* v_t = static_cast<T*>(v);
-  if (n <= 8) {
-    jacobi_kernel<T, 8><<<blocks, THREADS, 0, s>>>(a_t, w_t, v_t, P, n, W, sweeps);
-  } else if (n <= 16) {
-    jacobi_kernel<T, 16><<<blocks, THREADS, 0, s>>>(a_t, w_t, v_t, P, n, W, sweeps);
-  } else {
-    jacobi_kernel<T, 32><<<blocks, THREADS, 0, s>>>(a_t, w_t, v_t, P, n, W, sweeps);
+  switch (n) {
+    case 2: launch_n<T, 2, true>(a, w, v, P, n, W, sweeps, s); break;
+    case 4: launch_n<T, 4, true>(a, w, v, P, n, W, sweeps, s); break;
+    case 6: launch_n<T, 6, true>(a, w, v, P, n, W, sweeps, s); break;
+    case 8: launch_n<T, 8, true>(a, w, v, P, n, W, sweeps, s); break;
+    default:
+      if (n <= 16) {
+        launch_n<T, 16, false>(a, w, v, P, n, W, sweeps, s);
+      } else {
+        launch_n<T, 32, false>(a, w, v, P, n, W, sweeps, s);
+      }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 """Device and dtype policy of the PyTorch port.
 
-The caller names the device; nothing here picks one. On the CPU the port
-computes in float64, so that it can be held against the JAX package's
+An entry point runs on the GPU unless the caller asks for the CPU:
+``resolve_device(None)`` is ``cuda``, and raises where no GPU is
+available, so that a run meant for the card never carries on quietly on
+the CPU. On the CPU the port computes in float64, so that it can be held against the JAX package's
 float64 CPU path at its own tolerances. On CUDA it computes in the
 ``Config.dtype`` that the caller asked for.
 
@@ -17,6 +19,21 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``device`` as given, or
+    ``cuda`` when it is None. Raises ``RuntimeError`` for None where CUDA
+    is not available."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        msg = (
+            "no CUDA device is available: the port runs on the GPU unless "
+            'the caller passes device="cpu"'
+        )
+        raise RuntimeError(msg)
+    return torch.device("cuda")
 
 
 def resolve_dtype(config_dtype: str, device) -> torch.dtype:

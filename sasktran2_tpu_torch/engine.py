@@ -5,10 +5,10 @@ Same contract as the JAX engine: construct with (config, model geometry,
 viewing geometry), then ``calculate_radiance(atmosphere)`` returns a
 ``Dataset`` with ``radiance`` and the ``wf_*`` weighting functions. The
 host side (ray tracing, angular and chapman tables, the atmosphere's
-constituent pipeline, weighting-function assembly) is numpy and reuses
-the JAX package's jax-free modules; the solve runs in torch on the
-device the caller names, with the Thomas and Jacobi work in the CUDA
-kernels of ``ops/`` when that device is a GPU.
+constituent pipeline, weighting-function assembly) is numpy, in the port's
+own copies of the JAX package's host modules; the solve runs in torch on
+the GPU (or on the CPU when the caller asks for it), with the Thomas and
+Jacobi work in the CUDA kernels of ``ops/`` on the GPU.
 
 Covered: 1D geometry (plane-parallel, pseudo-spherical, spherical) with
 ground-viewing rays (``GroundViewingSolar``, ``SolarAnglesObserverLocation``),
@@ -23,8 +23,9 @@ import functools
 
 import numpy as np
 import torch
-from sasktran2_tpu.atmosphere import Atmosphere
-from sasktran2_tpu.config import (
+
+from .atmosphere import Atmosphere
+from .config import (
     Config,
     EmissionSource,
     GeometryType,
@@ -33,22 +34,21 @@ from sasktran2_tpu.config import (
     SingleScatterSource,
     SpectralGridMode,
 )
-from sasktran2_tpu.dataset import DataArray, Dataset
-from sasktran2_tpu.geometry import Geometry1D, Geometry2D
-from sasktran2_tpu.rt.raytrace import trace_spherical
-from sasktran2_tpu.util.validation import validate_atmosphere_core
-from sasktran2_tpu.viewinggeo import (
-    GroundViewingSolar,
-    SolarAnglesObserverLocation,
-    TangentAltitudeSolar,
-    ViewingGeometryContainer,
-)
-
-from .device import resolve_dtype
+from .dataset import DataArray, Dataset
+from .device import resolve_device, resolve_dtype
+from .geometry import Geometry1D
 from .params import core_from_reference
 from .rt import disco
 from .rt.disco_nstream import solve_nstream
+from .rt.raytrace import trace_spherical
 from .util.torchmath import safe_div
+from .util.validation import validate_atmosphere_core
+from .viewinggeo import (
+    GroundViewingSolar,
+    SolarAnglesObserverLocation,
+    TangentAltitudeSolar,
+    ViewingGeometry,
+)
 
 
 def _not_ported(what: str, slice_: str):
@@ -57,16 +57,19 @@ def _not_ported(what: str, slice_: str):
 
 
 class Engine:
-    """``Engine(config, geometry, viewing_geometry, device="cpu")``.
+    """``Engine(config, geometry, viewing_geometry, device=None)``.
 
-    ``device`` is where the solve runs. On the CPU the port computes in
-    float64; on CUDA in ``config.dtype``.
+    ``device`` is where the solve runs: ``None`` means ``"cuda"``, and
+    raises ``RuntimeError`` where no GPU is available rather than running
+    on the CPU; pass ``device="cpu"`` for the CPU. On the CPU the port
+    computes in float64; on CUDA in ``config.dtype``.
     """
 
     def __init__(
         self, config: Config, geometry: Geometry1D, viewing_geometry,
-        device="cpu",
+        device=None,
     ):
+        self._device = resolve_device(device)
         config.validate()
         self._config = config
         self._geometry = geometry
@@ -78,7 +81,6 @@ class Engine:
         self._check_slice(
             list(getattr(viewing_geometry, "flux_observers", []))
         )
-        self._device = torch.device(device)
         self._dtype = resolve_dtype(config.dtype, self._device)
 
         self._traced = trace_spherical(
@@ -100,10 +102,9 @@ class Engine:
 
     @property
     def ray_tracer(self) -> str:
-        """Which host ray tracer this engine used: the JAX package's
-        native C++ tracer (built with g++ at first use) or its numpy
-        fallback."""
-        from sasktran2_tpu.native import get_native_lib
+        """Which host ray tracer this engine used: the port's native C++
+        tracer (built with g++ at first use) or its numpy fallback."""
+        from .native import get_native_lib
 
         return "native C++" if get_native_lib() is not None else "numpy"
 
@@ -113,8 +114,20 @@ class Engine:
         cfg = self._config
         ms = cfg.multiple_scatter_source
         ss = cfg.single_scatter_source
-        if isinstance(self._geometry, Geometry2D):
-            raise _not_ported("Geometry2D", "ROADMAP Queue 1 slice 11, 2D")
+        if not isinstance(self._geometry, Geometry1D):
+            msg = (
+                "geometry must be a sasktran2_tpu_torch.Geometry1D, got "
+                f"{type(self._geometry).__module__}."
+                f"{type(self._geometry).__name__} (Geometry2D is ROADMAP "
+                "Queue 1 slice 11, 2D)"
+            )
+            raise TypeError(msg)
+        if not isinstance(self._viewing, ViewingGeometry):
+            raise _not_ported(
+                f"viewing geometry {type(self._viewing).__name__} (the port "
+                "takes sasktran2_tpu_torch.ViewingGeometry)",
+                "ROADMAP, Next: ViewingGeometryContainer",
+            )
         if cfg.num_stokes != 1:
             raise _not_ported(
                 "polarized radiance", "ROADMAP Queue 1 slice 8, polarized"
@@ -226,7 +239,7 @@ class Engine:
             radii = re + alts  # bottom-up levels
             c = np.zeros((P, P))
             if self._config.solar_refraction:
-                from sasktran2_tpu.rt.refraction import RefractiveShellIntegrator
+                from .rt.refraction import RefractiveShellIntegrator
 
                 integ = RefractiveShellIntegrator(
                     radii, self._geometry.refractive_index
@@ -322,6 +335,12 @@ class Engine:
         every gradient block come back to the host in one copy."""
         if mesh is not None:
             raise _not_ported("mesh=", "ROADMAP Queue 1 slice 13, multi-GPU")
+        if not isinstance(atmosphere, Atmosphere):
+            msg = (
+                "atmosphere must be a sasktran2_tpu_torch.Atmosphere; "
+                "params.atmosphere_from_reference carries one over"
+            )
+            raise TypeError(msg)
         core_np = atmosphere.internal_object()
         validate_atmosphere_core(
             core_np, self._geometry.num_altitudes,
@@ -375,16 +394,11 @@ class Engine:
         out["radiance"] = DataArray(
             host[0].reshape(-1, nlos, 1), ("wavelength", "los", "stokes")
         )
-        out_wavel = getattr(atmosphere, "_output_wavelengths_nm", None)
-        if out_wavel is not None:
-            out.coords["wavelength"] = out_wavel
-        elif atmosphere.wavelengths_nm is not None:
+        if atmosphere.wavelengths_nm is not None:
             out.coords["wavelength"] = atmosphere.wavelengths_nm
         out.coords["stokes"] = ["I"]
         if needs_jac:
             self._assemble_wfs(out, atmosphere, grads, nlos)
-        if isinstance(self._viewing, ViewingGeometryContainer):
-            out = self._viewing.add_geometry_to_radiance(out)
         return out
 
     # ------------------------------------------------------------------

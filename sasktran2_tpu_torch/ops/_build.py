@@ -61,10 +61,15 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source is
     present; return the library's path."""
     out = library_path(name)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    if not os.path.exists(out):
+        compile_library(os.path.join(CSRC_DIR, f"{name}.cu"), out)
+    return out
+
+
+def compile_library(src: str, out: str) -> str:
+    """``nvcc`` ``src`` into the shared library ``out``, with its ptxas
+    report beside it as ``<out without .so>.log``."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],

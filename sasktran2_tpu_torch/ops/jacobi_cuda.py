@@ -7,8 +7,10 @@ the eigendecomposition of symmetric ``[P, n, n, W]`` matrices, n even and
 at most 32, by ``sweeps`` sweeps of n-1 tournament rounds, each round n/2
 disjoint Jacobi rotations, re-symmetrizing after each sweep. Outputs are
 unsorted eigenvalues ``[P, n, W]`` and eigenvectors ``[P, n, n, W]``.
-``csrc/jacobi.cu`` runs one thread per (layer, lane); its header says
-what bounds it.
+``csrc/jacobi.cu`` runs one thread per (layer, lane), with the rounds
+unrolled and the matrix in registers at n <= 8, and takes each rotation
+from the Pallas kernel's half-angle tangent; its header says what bounds
+it.
 
 ``jacobi_eigh`` launches the kernel for a CUDA tensor and runs
 ``jacobi_eigh_plain`` (the sweep loop of the reference's

@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 forward elimination of ``lo[p] x[p-1] + di[p] x[p] + up[p] x[p+1] = r[p]``
 then back substitution, for lo/di/up ``[P, K, K, W]`` and r ``[P, K, W]``
 with the wavelength axis last. ``csrc/thomas.cu`` runs both in one launch,
-one thread per (wavelength lane, matrix row); its header says what bounds
-it.
+one warp per wavelength lane, the lane's rows split over the warp's
+threads; its header says what bounds it. The scratch buffers c and y
+keep their [P, K, K, W] and [P, K, W] sizes but hold the kernel's
+lane-major layout.
 
 ``thomas_solve`` launches the kernel for a CUDA tensor and runs
 ``thomas_solve_plain`` (the scan loop of the reference's

@@ -1,10 +1,13 @@
-"""Carry the JAX package's host-side state into the port.
+"""Carry state into the port's tensors and tables, and across from the
+JAX package.
 
-The port reuses ``sasktran2_tpu.Atmosphere`` (numpy, no jax), so a
-calculation's inputs are the same dict of numpy arrays in both packages;
-these functions turn that state into the port's tensors and tables. The
-parity tests feed both packages through them, so that both compute the
-same thing.
+The port has its own ``Atmosphere`` (a copy of the JAX package's numpy
+class), so a calculation's inputs are the same dict of numpy arrays in
+both packages. ``core_from_reference`` turns that dict into the port's
+tensors. ``atmosphere_from_reference`` and ``mode_tables_from_reference``
+copy a JAX-side object's numpy state into the port's class; they read
+attributes only and import nothing of ``sasktran2_tpu``, so the parity
+tests can feed both packages the same state.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .atmosphere import Atmosphere
 from .rt.disco import ModeTables
 
 
@@ -38,3 +42,47 @@ def mode_tables_from_reference(tables) -> ModeTables:
         mu0=float(tables.mu0),
         user_mu=np.asarray(tables.user_mu),
     )
+
+
+def atmosphere_from_reference(ref_atmo, geometry, config) -> Atmosphere:
+    """A JAX-side ``Atmosphere`` -> the port's ``Atmosphere`` on
+    (``geometry``, ``config``), the port's own objects, with copies of the
+    same storage, surface, wavelengths and derivative mappings. Constituents
+    are not carried: the result is a raw-input atmosphere holding the state
+    that ``ref_atmo`` holds now."""
+    if ref_atmo.surface.brdf is not None:
+        msg = (
+            "BRDF surfaces are not ported to the PyTorch engine yet "
+            "(ROADMAP Queue 1 slice 4, BRDF surface_ops)"
+        )
+        raise NotImplementedError(msg)
+    wl = ref_atmo.wavelengths_nm
+    atmo = Atmosphere(
+        geometry, config,
+        wavelengths_nm=None if wl is None else np.array(wl),
+        numwavel=ref_atmo.num_wavelengths if wl is None else None,
+        calculate_derivatives=ref_atmo.calculate_derivatives,
+        calculate_emission_derivatives=ref_atmo.calculate_emission_derivatives,
+    )
+    src, dst = ref_atmo.storage, atmo.storage
+    for name in ("total_extinction", "ssa", "emission_source", "leg_coeff",
+                 "solar_irradiance", "f"):
+        getattr(dst, name)[...] = getattr(src, name)
+    for name in ("albedo", "emission"):
+        getattr(atmo.surface, name)[...] = getattr(ref_atmo.surface, name)
+    for name, m in src.derivative_mappings.items():
+        mine = dst.get_derivative_mapping(name)
+        for field in ("d_extinction", "d_ssa", "d_emission", "d_leg_coeff",
+                      "scat_factor", "interpolator"):
+            value = getattr(m, field)
+            setattr(mine, field, None if value is None else np.array(value))
+        for field in ("interp_dim", "assign_name", "log_radiance_space"):
+            setattr(mine, field, getattr(m, field))
+    for name, m in ref_atmo.surface.derivative_mappings.items():
+        mine = atmo.surface.get_derivative_mapping(name)
+        mine.d_brdf = np.array(m.d_brdf)
+        mine.interpolator = (
+            None if m.interpolator is None else np.array(m.interpolator)
+        )
+        mine.interp_dim = m.interp_dim
+    return atmo

@@ -10,8 +10,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-from sasktran2_tpu.ops.quadrature import streams
-from sasktran2_tpu.ops.wigner import normalized_alp
+
+from ..ops.quadrature import streams
+from ..ops.wigner import normalized_alp
 
 # The solver needs omega strictly below 1: conservative scattering gives a
 # zero eigenvalue in the m=0 mode. The ceiling and its reasons are the JAX

@@ -1,51 +1,58 @@
-"""The port's ``Engine`` against ``sasktran2_tpu.Engine`` on the same
-``Atmosphere``, in float64 on the CPU: radiance and every ``wf_*`` to
-1e-10 relative to each variable's largest magnitude, at 4 streams, 20
-altitudes and 3 wavelengths, in plane-parallel geometry (constituent
-atmosphere, Legendre Jacobians on) and pseudo-spherical geometry (raw
-input atmosphere, two solar zenith groups). Configurations outside the
-ported slice raise ``NotImplementedError``."""
+"""The port's ``Engine`` against ``sasktran2_tpu.Engine``, in float64 on
+the CPU: each package builds its own config, geometry, viewing geometry
+and atmosphere from the same numpy inputs, and radiance and every ``wf_*``
+agree to 1e-10 relative to each variable's largest magnitude, at 4
+streams, 20 altitudes and 3 wavelengths, in plane-parallel geometry
+(constituent atmosphere, Legendre Jacobians on) and pseudo-spherical
+geometry (raw input atmosphere carried over by
+``params.atmosphere_from_reference``, two solar zenith groups).
+Configurations outside the ported slice raise ``NotImplementedError``;
+an engine with no device named needs a GPU."""
 
 import numpy as np
 import pytest
 
 import sasktran2_tpu as sk
 import sasktran2_tpu_torch as skt
+from sasktran2_tpu_torch.params import atmosphere_from_reference
 
 WAVELENGTHS = np.array([310.0, 400.0, 550.0])
 ALTITUDES = np.linspace(0.0, 100000.0, 20)
 
 
-def _config(nstr=4, **kw):
-    return sk.Config(
+def _config(pkg, nstr=4, **kw):
+    return pkg.Config(
         num_streams=nstr,
         multiple_scatter_source=kw.pop(
-            "ms", sk.MultipleScatterSource.DiscreteOrdinates
+            "ms", pkg.MultipleScatterSource.DiscreteOrdinates
         ),
-        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        single_scatter_source=pkg.SingleScatterSource.DiscreteOrdinates,
         num_singlescatter_moments=4,
         **kw,
     )
 
 
-def _geometry(geometry_type):
-    return sk.Geometry1D(
+def _geometry(pkg, geometry_type):
+    return pkg.Geometry1D(
         cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
-        altitude_grid_m=ALTITUDES, geometry_type=geometry_type,
+        altitude_grid_m=ALTITUDES,
+        geometry_type=getattr(pkg.GeometryType, geometry_type),
     )
 
 
-def _constituent_atmosphere(config, geometry):
-    atmo = sk.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
-    skt.climatology.us76.add_us76_standard_atmosphere(atmo)
-    atmo["rayleigh"] = skt.constituent.Rayleigh()
-    atmo["surface"] = skt.constituent.LambertianSurface([0.1, 0.3, 0.2])
+def _constituent_atmosphere(pkg, config, geometry, _ref=None):
+    atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
+    pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = pkg.constituent.Rayleigh()
+    atmo["surface"] = pkg.constituent.LambertianSurface([0.1, 0.3, 0.2])
     return atmo
 
 
-def _raw_atmosphere(config, geometry):
+def _raw_atmosphere(pkg, config, geometry, ref=None):
+    if ref is not None:
+        return atmosphere_from_reference(ref, geometry, config)
     rng = np.random.default_rng(5)
-    atmo = sk.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
+    atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
     z = ALTITUDES[:, None]
     atmo.storage.total_extinction[:] = (
         2e-5 * np.exp(-z / 8000.0) * rng.uniform(0.8, 1.2, size=(1, 3))
@@ -58,33 +65,40 @@ def _raw_atmosphere(config, geometry):
     return atmo
 
 
+# (geometry type, atmosphere builder, rays as (class name, arguments))
 CASES = {
     "planeparallel_constituents": (
-        sk.GeometryType.PlaneParallel, _constituent_atmosphere,
-        [sk.GroundViewingSolar(0.6, 0.5, mu, 200000.0) for mu in (0.5, 0.9)],
+        "PlaneParallel", _constituent_atmosphere,
+        [("GroundViewingSolar", (0.6, 0.5, mu, 200000.0)) for mu in (0.5, 0.9)],
     ),
     "pseudospherical_raw": (
-        sk.GeometryType.PseudoSpherical, _raw_atmosphere,
+        "PseudoSpherical", _raw_atmosphere,
         [
-            sk.GroundViewingSolar(0.6, 0.5, 0.7, 200000.0),
-            sk.SolarAnglesObserverLocation(0.4, 1.1, -0.8, 200000.0),
-            sk.GroundViewingSolar(0.4, 2.0, 1.0, 200000.0),
+            ("GroundViewingSolar", (0.6, 0.5, 0.7, 200000.0)),
+            ("SolarAnglesObserverLocation", (0.4, 1.1, -0.8, 200000.0)),
+            ("GroundViewingSolar", (0.4, 2.0, 1.0, 200000.0)),
         ],
     ),
 }
 
 
+def _case(pkg, case, ref_atmo=None):
+    geometry_type, make_atmo, rays = CASES[case]
+    config = _config(pkg)
+    geometry = _geometry(pkg, geometry_type)
+    viewing = pkg.ViewingGeometry()
+    for cls, args in rays:
+        viewing.add_ray(getattr(pkg, cls)(*args))
+    return config, geometry, viewing, make_atmo(pkg, config, geometry, ref_atmo)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_engine_matches_jax(case):
-    geometry_type, make_atmo, rays = CASES[case]
-    config = _config()
-    geometry = _geometry(geometry_type)
-    viewing = sk.ViewingGeometry()
-    for ray in rays:
-        viewing.add_ray(ray)
-    atmo = make_atmo(config, geometry)
+    config, geometry, viewing, atmo = _case(sk, case)
     ref = sk.Engine(config, geometry, viewing).calculate_radiance(atmo)
-    got = skt.Engine(config, geometry, viewing).calculate_radiance(atmo)
+    config, geometry, viewing, atmo_t = _case(skt, case, ref_atmo=atmo)
+    got = skt.Engine(config, geometry, viewing, device="cpu")\
+        .calculate_radiance(atmo_t)
     assert set(got.keys()) == set(ref.keys())
     assert len([k for k in ref.keys() if k.startswith("wf_")]) >= 3
     for name in ref.keys():
@@ -100,8 +114,8 @@ def test_engine_matches_jax(case):
 
 
 def _limb_viewing():
-    viewing = sk.ViewingGeometry()
-    viewing.add_ray(sk.TangentAltitudeSolar(
+    viewing = skt.ViewingGeometry()
+    viewing.add_ray(skt.TangentAltitudeSolar(
         tangent_altitude_m=20000.0, relative_azimuth=0.0,
         observer_altitude_m=200000.0, cos_sza=0.6,
     ))
@@ -109,22 +123,41 @@ def _limb_viewing():
 
 
 def _ground_viewing(flux=False):
-    viewing = sk.ViewingGeometry()
-    viewing.add_ray(sk.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
+    viewing = skt.ViewingGeometry()
+    viewing.add_ray(skt.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
     if flux:
-        viewing.add_flux_observer(sk.FluxObserverSolar(0.6, 10000.0))
+        viewing.add_flux_observer(skt.FluxObserverSolar(0.6, 10000.0))
     return viewing
 
 
 @pytest.mark.parametrize(("config", "viewing", "match"), [
-    (lambda: _config(nstr=2), _ground_viewing, "two-stream"),
-    (lambda: _config(ms=sk.MultipleScatterSource.TwoStream), _ground_viewing,
-     "two-stream"),
-    (_config, _limb_viewing, "limb"),
-    (lambda: _config(num_stokes=3), _ground_viewing, "polarized"),
-    (_config, lambda: _ground_viewing(flux=True), "flux"),
+    (lambda: _config(skt, nstr=2), _ground_viewing, "two-stream"),
+    (lambda: _config(skt, ms=skt.MultipleScatterSource.TwoStream),
+     _ground_viewing, "two-stream"),
+    (lambda: _config(skt), _limb_viewing, "limb"),
+    (lambda: _config(skt, num_stokes=3), _ground_viewing, "polarized"),
+    (lambda: _config(skt), lambda: _ground_viewing(flux=True), "flux"),
 ])
 def test_out_of_slice_raises(config, viewing, match):
-    geometry = _geometry(sk.GeometryType.PlaneParallel)
+    geometry = _geometry(skt, "PlaneParallel")
     with pytest.raises(NotImplementedError, match=match):
-        skt.Engine(config(), geometry, viewing())
+        skt.Engine(config(), geometry, viewing(), device="cpu")
+
+
+@pytest.mark.parametrize("foreign", ["geometry", "viewing", "atmosphere"])
+def test_reference_objects_refused(foreign):
+    """The port takes its own classes only; a JAX-side object raises
+    instead of being read by duck typing."""
+    ref = _case(sk, "pseudospherical_raw")
+    config, geometry, viewing, _ = _case(skt, "pseudospherical_raw",
+                                         ref_atmo=ref[3])
+    if foreign == "geometry":
+        with pytest.raises(TypeError, match="Geometry1D"):
+            skt.Engine(config, ref[1], viewing, device="cpu")
+    elif foreign == "viewing":
+        with pytest.raises(NotImplementedError, match="ViewingGeometry"):
+            skt.Engine(config, geometry, ref[2], device="cpu")
+    else:
+        engine = skt.Engine(config, geometry, viewing, device="cpu")
+        with pytest.raises(TypeError, match="atmosphere_from_reference"):
+            engine.calculate_radiance(ref[3])

@@ -1,0 +1,215 @@
+"""The port's copies of the JAX package's host modules, pinned bit-equal to
+the originals: the ray tracer (native and numpy), the stream quadrature and
+associated Legendre tables, ``Config``, the US76 + Rayleigh + Lambertian
+atmosphere, and ``params.atmosphere_from_reference``. The geometries are
+the 16-stream slice's (cut to 20 altitudes) and both cases of
+``tests/test_torch_engine.py``; each side builds its objects with its own
+package from the same numpy inputs."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import sasktran2_tpu as sk
+import sasktran2_tpu_torch as skt
+from sasktran2_tpu import config as config_ref
+from sasktran2_tpu.ops import quadrature as quadrature_ref
+from sasktran2_tpu.ops import wigner as wigner_ref
+from sasktran2_tpu.rt import raytrace as raytrace_ref
+from sasktran2_tpu_torch import config as config_port
+from sasktran2_tpu_torch.ops import quadrature, wigner
+from sasktran2_tpu_torch.params import atmosphere_from_reference
+from sasktran2_tpu_torch.rt import raytrace
+
+ALTITUDES = np.linspace(0.0, 100000.0, 20)
+WAVELENGTHS = np.array([310.0, 400.0, 550.0])
+
+# name -> (geometry type, cos_sza, rays as (class name, arguments))
+GEOMETRIES = {
+    "slice_planeparallel": ("PlaneParallel", 0.6, [
+        ("GroundViewingSolar", (0.6, 0.5, mu, 200000.0))
+        for mu in (0.4, 0.6, 0.8, 1.0)
+    ]),
+    "engine_planeparallel": ("PlaneParallel", 0.6, [
+        ("GroundViewingSolar", (0.6, 0.5, mu, 200000.0)) for mu in (0.5, 0.9)
+    ]),
+    "engine_pseudospherical": ("PseudoSpherical", 0.6, [
+        ("GroundViewingSolar", (0.6, 0.5, 0.7, 200000.0)),
+        ("SolarAnglesObserverLocation", (0.4, 1.1, -0.8, 200000.0)),
+        ("GroundViewingSolar", (0.4, 2.0, 1.0, 200000.0)),
+    ]),
+}
+
+
+def _build(pkg, name):
+    geometry_type, cos_sza, rays = GEOMETRIES[name]
+    config = pkg.Config(
+        num_streams=4,
+        multiple_scatter_source=pkg.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=pkg.SingleScatterSource.DiscreteOrdinates,
+        num_singlescatter_moments=4,
+    )
+    geometry = pkg.Geometry1D(
+        cos_sza=cos_sza, solar_azimuth=0.0, earth_radius_m=6372000.0,
+        altitude_grid_m=ALTITUDES,
+        geometry_type=getattr(pkg.GeometryType, geometry_type),
+    )
+    ray_objs = [getattr(pkg, cls)(*args) for cls, args in rays]
+    return config, geometry, ray_objs
+
+
+@pytest.fixture(scope="session")
+def reference_traces():
+    """The JAX package's traced tables of every geometry, numpy and native."""
+    out = {}
+    for name in GEOMETRIES:
+        _, geometry, rays = _build(sk, name)
+        for use_native in (False, True):
+            out[name, use_native] = raytrace_ref.trace_spherical(
+                geometry.altitudes(), geometry.earth_radius_m,
+                geometry.cos_sza, rays, use_native=use_native,
+            )
+    return out
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_trace_spherical_equal(reference_traces, name, use_native):
+    _, geometry, rays = _build(skt, name)
+    got = raytrace.trace_spherical(
+        geometry.altitudes(), geometry.earth_radius_m, geometry.cos_sza,
+        rays, use_native=use_native,
+    )
+    ref = reference_traces[name, use_native]
+    for field in dataclasses.fields(ref):
+        np.testing.assert_array_equal(
+            getattr(got, field.name), getattr(ref, field.name),
+            err_msg=field.name,
+        )
+
+
+@pytest.mark.parametrize("refraction", ["los", "solar"])
+def test_trace_spherical_refracted_equal(refraction):
+    """The refracted numpy path (``rt/refraction.py``) on a non-unit
+    refractive index."""
+    n = 1.0 + 2.9e-4 * np.exp(-ALTITUDES / 8000.0)
+    kw = {"los_refraction": refraction == "los",
+          "solar_refraction": refraction == "solar"}
+    traced = []
+    for pkg, module in ((sk, raytrace_ref), (skt, raytrace)):
+        _, geometry, rays = _build(pkg, "engine_pseudospherical")
+        traced.append(module.trace_spherical(
+            geometry.altitudes(), geometry.earth_radius_m, geometry.cos_sza,
+            rays, refractive_index=n, **kw,
+        ))
+    ref, got = traced
+    for field in dataclasses.fields(ref):
+        np.testing.assert_array_equal(
+            getattr(got, field.name), getattr(ref, field.name),
+            err_msg=field.name,
+        )
+
+
+@pytest.mark.parametrize("nstr", [2, 4, 8, 16, 24])
+def test_streams_and_alp_equal(nstr):
+    mu, w = quadrature.streams(nstr)
+    mu_ref, w_ref = quadrature_ref.streams(nstr)
+    np.testing.assert_array_equal(mu, mu_ref)
+    np.testing.assert_array_equal(w, w_ref)
+    x = np.concatenate([mu, -mu, [0.3, -0.45, 1.0]])
+    for m in range(min(nstr, 4)):
+        np.testing.assert_array_equal(
+            wigner.normalized_alp(x, m, nstr),
+            wigner_ref.normalized_alp(x, m, nstr),
+        )
+
+
+def test_config_defaults_and_enums_equal():
+    got, ref = config_port.Config(), config_ref.Config()
+    for field in dataclasses.fields(ref):
+        a, b = getattr(got, field.name), getattr(ref, field.name)
+        if hasattr(b, "value"):
+            assert type(a).__name__ == type(b).__name__, field.name
+            a, b = a.value, b.value
+        elif isinstance(b, tuple):
+            a = tuple(getattr(v, "value", v) for v in a)
+            b = tuple(getattr(v, "value", v) for v in b)
+        assert a == b, field.name
+    assert [f.name for f in dataclasses.fields(got)] == [
+        f.name for f in dataclasses.fields(ref)
+    ]
+    enums = [n for n, v in vars(config_ref).items()
+             if isinstance(v, type) and issubclass(v, config_ref.enum.Enum)
+             and v.__module__ == config_ref.__name__]
+    assert len(enums) >= 14
+    for name in enums:
+        ref_members = {m.name: m.value for m in getattr(config_ref, name)}
+        got_members = {m.name: m.value for m in getattr(config_port, name)}
+        assert got_members == ref_members, name
+
+
+def _constituent_atmosphere(pkg, name):
+    config, geometry, _ = _build(pkg, name)
+    atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
+    pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = pkg.constituent.Rayleigh()
+    atmo["surface"] = pkg.constituent.LambertianSurface([0.1, 0.3, 0.2])
+    return atmo
+
+
+def _assert_atmospheres_equal(got, ref):
+    ref_core, got_core = ref.internal_object(), got.internal_object()
+    assert set(got_core) == set(ref_core)
+    for k, v in ref_core.items():
+        np.testing.assert_array_equal(got_core[k], v, err_msg=k)
+    ref_maps = ref.storage.derivative_mappings
+    got_maps = got.storage.derivative_mappings
+    assert set(got_maps) == set(ref_maps)
+    for name, m in ref_maps.items():
+        for field in ("d_extinction", "d_ssa", "d_emission", "d_leg_coeff",
+                      "scat_factor", "interpolator", "interp_dim",
+                      "assign_name", "log_radiance_space"):
+            a, b = getattr(got_maps[name], field), getattr(m, field)
+            if b is None:
+                assert a is None, (name, field)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=f"{name} {field}")
+    ref_surf = ref.surface.derivative_mappings
+    assert set(got.surface.derivative_mappings) == set(ref_surf)
+    for name, m in ref_surf.items():
+        np.testing.assert_array_equal(
+            got.surface.derivative_mappings[name].d_brdf, m.d_brdf
+        )
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_constituent_atmosphere_equal(name):
+    _assert_atmospheres_equal(
+        _constituent_atmosphere(skt, name), _constituent_atmosphere(sk, name)
+    )
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_atmosphere_from_reference_round_trip(name):
+    """A raw-input reference atmosphere carried into the port gives the
+    same core arrays and mappings, and owns its own copies."""
+    config, geometry, _ = _build(sk, name)
+    rng = np.random.default_rng(11)
+    ref = sk.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
+    ref.storage.total_extinction[:] = rng.uniform(
+        1e-6, 1e-4, size=ref.storage.total_extinction.shape)
+    ref.storage.ssa[:] = rng.uniform(0.5, 1.0, size=ref.storage.ssa.shape)
+    ref.storage.leg_coeff[:] = rng.uniform(
+        0.0, 1.0, size=ref.storage.leg_coeff.shape)
+    ref.storage.leg_coeff[0] = 1.0
+    ref.storage.solar_irradiance[:] = rng.uniform(1.0, 2.0, size=3)
+    ref.surface.albedo[:] = rng.uniform(0.0, 1.0, size=3)
+    ref.internal_object()  # raw input mode registers its unit mappings
+    config_t, geometry_t, _ = _build(skt, name)
+    got = atmosphere_from_reference(ref, geometry_t, config_t)
+    assert isinstance(got, skt.Atmosphere)
+    assert got.model_geometry is geometry_t
+    np.testing.assert_array_equal(got.wavelengths_nm, ref.wavelengths_nm)
+    _assert_atmospheres_equal(got, ref)
+    assert not np.shares_memory(got.storage.ssa, ref.storage.ssa)

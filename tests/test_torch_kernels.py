@@ -4,7 +4,13 @@ interpreter mode, as ``tests/test_pallas_thomas.py`` and
 ``tests/test_pallas_jacobi.py`` run them, at those tests' shapes, in
 float64 (values to 1e-10 relative). A CPU tensor takes the plain twin and
 leaves the launch counters at 0. The CUDA kernels themselves run only on
-a GPU: those tests carry the ``cuda`` marker and skip without one."""
+a GPU: those tests carry the ``cuda`` marker and skip without one. On the
+card, Thomas runs at K in {4, 8, 16, 24} with a ragged W = 1000 against
+the dense f64 truth (f32, within max(4 x the plain twin's error, 1e-5),
+as ``tests/test_pallas_thomas.py`` holds the Pallas kernel) and against
+the plain twin in f64 (1e-12); Jacobi runs at n in {2, 8, 16, 24, 32}
+against numpy's ``eigh`` (f32: eigenvalue sets and reconstruction
+residual) and against the plain twin in f64 (1e-12)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,3 +105,67 @@ def test_jacobi_kernel_vs_plain_on_gpu(cuda_device, P, n, W):
     wp, vp = jacobi_cuda.jacobi_eigh_plain(a, 10)
     assert _rel(w.cpu().numpy(), wp.cpu().numpy()) <= 1e-10
     assert _rel(v.cpu().numpy(), vp.cpu().numpy()) <= 1e-10
+
+
+def _dense_truth(lo, di, up, r, w):
+    P, K = r.shape[:2]
+    big = np.zeros((P * K, P * K))
+    for p in range(P):
+        big[p * K:(p + 1) * K, p * K:(p + 1) * K] = di[p, :, :, w]
+        if p > 0:
+            big[p * K:(p + 1) * K, (p - 1) * K:p * K] = lo[p, :, :, w]
+        if p < P - 1:
+            big[p * K:(p + 1) * K, (p + 1) * K:(p + 2) * K] = up[p, :, :, w]
+    return np.linalg.solve(big, r[:, :, w].ravel()).reshape(P, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 8, 16, 24])
+def test_thomas_kernel_ragged_w_on_gpu(cuda_device, K):
+    """f32 against the dense f64 truth; f64 against the plain twin."""
+    P, W = 9, 1000
+    lo, di, up, r = _thomas_inputs(P, K, W, 40 + K)
+    di = di + 2.0 * np.sqrt(K) * np.eye(K)[:, :, None]  # diagonal dominance
+    args32 = [torch.tensor(a, dtype=torch.float32, device=cuda_device)
+              for a in (lo, di, up, r)]
+    got = thomas_cuda.thomas_solve(*args32).cpu().numpy()
+    plain = thomas_cuda.thomas_solve_plain(*args32).cpu().numpy()
+    for w in (0, 1, 499, 997, 999):
+        truth = _dense_truth(lo, di, up, r, w)
+        plain_err = np.max(np.abs(plain[:, :, w] - truth))
+        kernel_err = np.max(np.abs(got[:, :, w] - truth))
+        assert kernel_err <= max(4.0 * plain_err, 1e-5), (w, kernel_err,
+                                                          plain_err)
+    args64 = [torch.tensor(a, device=cuda_device) for a in (lo, di, up, r)]
+    got64 = thomas_cuda.thomas_solve(*args64).cpu().numpy()
+    ref64 = thomas_cuda.thomas_solve_plain(*args64).cpu().numpy()
+    assert _rel(got64, ref64) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 8, 16, 24, 32])
+def test_jacobi_kernel_vs_eigh_on_gpu(cuda_device, n):
+    """f32 with the reference's 7 sweeps (10 at n >= 24, where 7 do not
+    converge random matrices) against numpy's eigh; f64 against the plain
+    twin."""
+    P, W = 3, 130
+    sym = _sym_inputs(P, n, W)
+    sweeps = 7 if n <= 16 else 10
+    a32 = torch.tensor(sym, dtype=torch.float32, device=cuda_device)
+    w, v = (t.cpu().double().numpy() for t in jacobi_cuda.jacobi_eigh(a32, sweeps))
+    sym32 = sym.astype(np.float32).astype(np.float64)
+    expect = np.linalg.eigh(np.moveaxis(sym32, -1, -3))[0]      # [P, W, n]
+    got = np.sort(np.moveaxis(w, -1, -2), axis=-1)
+    assert np.max(np.abs(got - expect) / (2e-5 + 2e-5 * np.abs(expect))) <= 1.0
+    av = np.einsum("pijw,pjaw->piaw", sym32, v)
+    assert np.max(np.abs(av - w[:, None] * v)) <= 5e-4
+    # the plain twin in f32 is held to the same bound against eigh, so the
+    # two f32 solutions may differ by twice that bound
+    wp, _ = jacobi_cuda.jacobi_eigh_plain(a32, sweeps)
+    plain = np.sort(np.moveaxis(wp.cpu().double().numpy(), -1, -2), axis=-1)
+    assert np.max(np.abs(got - plain) / (2e-5 + 2e-5 * np.abs(expect))) <= 2.0
+    a64 = torch.tensor(sym, device=cuda_device)
+    w64, v64 = jacobi_cuda.jacobi_eigh(a64, 10)
+    wp64, vp64 = jacobi_cuda.jacobi_eigh_plain(a64, 10)
+    assert _rel(w64.cpu().numpy(), wp64.cpu().numpy()) <= 1e-12
+    assert _rel(v64.cpu().numpy(), vp64.cpu().numpy()) <= 1e-12

@@ -54,22 +54,22 @@ def test_tournament_schedule_equal(n):
         np.testing.assert_array_equal(got, ref)
 
 
-def _ground_case(geometry_type, solar_refraction=False):
-    config = sk.Config(
+def _ground_case(pkg, geometry_type, solar_refraction=False):
+    config = pkg.Config(
         num_streams=4,
-        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
-        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        multiple_scatter_source=pkg.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=pkg.SingleScatterSource.DiscreteOrdinates,
         num_singlescatter_moments=4,
     )
     config.solar_refraction = solar_refraction
-    geometry = sk.Geometry1D(
+    geometry = pkg.Geometry1D(
         cos_sza=0.3, solar_azimuth=0.0, earth_radius_m=6372000.0,
         altitude_grid_m=np.linspace(0.0, 100000.0, 12),
-        geometry_type=geometry_type,
+        geometry_type=getattr(pkg.GeometryType, geometry_type),
     )
-    viewing = sk.ViewingGeometry()
+    viewing = pkg.ViewingGeometry()
     for mu0, muv in ((0.3, 0.7), (0.5, 1.0)):
-        viewing.add_ray(sk.GroundViewingSolar(
+        viewing.add_ray(pkg.GroundViewingSolar(
             cos_sza=mu0, relative_azimuth=0.2, cos_viewing_zenith=muv,
             observer_altitude_m=200000.0,
         ))
@@ -82,9 +82,9 @@ def _ground_case(geometry_type, solar_refraction=False):
     sk.GeometryType.Spherical,
 ])
 def test_chapman_equal(geometry_type):
-    config, geometry, viewing = _ground_case(geometry_type)
-    ref = sk.Engine(config, geometry, viewing)._chapman_cache("float64")
-    got = skt.Engine(config, geometry, viewing)._chapman
+    name = geometry_type.name
+    ref = sk.Engine(*_ground_case(sk, name))._chapman_cache("float64")
+    got = skt.Engine(*_ground_case(skt, name), device="cpu")._chapman
     assert set(got) == set(ref) and len(got) == 2
     for mu0, c in ref.items():
         if c is None:
@@ -108,13 +108,13 @@ def test_us76_and_bates_equal():
 
 @pytest.mark.parametrize("albedo", [0.3, [0.1, 0.4, 0.2]])
 def test_constituent_atmosphere_equal(albedo):
-    """The port's constituents give the reference's internal_object() and
-    derivative mappings on the same Atmosphere class."""
-    config, geometry, _ = _ground_case(sk.GeometryType.PlaneParallel)
+    """The port's constituents on the port's Atmosphere give the
+    reference's internal_object() and derivative mappings."""
     wl = np.array([300.0, 450.0, 700.0])
     atmos = []
     for pkg in (sk, skt):
-        atmo = sk.Atmosphere(geometry, config, wavelengths_nm=wl)
+        config, geometry, _ = _ground_case(pkg, "PlaneParallel")
+        atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=wl)
         pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
         atmo["rayleigh"] = pkg.constituent.Rayleigh()
         atmo["surface"] = pkg.constituent.LambertianSurface(albedo)
