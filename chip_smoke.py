@@ -18,8 +18,9 @@ final line:
    eigen-residual, the orthogonality of V, and the plain twin; and the
    time of ``torch.linalg.eigh`` on the same matrices as one contiguous
    [P*W, 8, 8] batch, the one PyTorch call that computes the same
-   function (timed here only; the port never calls it), with MAGMA where
-   PyTorch's default cuSOLVER route refuses a batch that size.
+   function (timed here only; the port never calls it), on its cuSOLVER
+   route in the fewest calls cuSOLVER accepts, and through MAGMA as a
+   note.
 4. The port's engine end to end: 16 streams, P = 100 layers, 4 rays,
    W = 1024 wavelengths, float32, full Jacobians, through
    ``Engine.calculate_radiance`` of an engine built with no ``device``
@@ -31,7 +32,9 @@ final line:
    kernel beside its plain twin at the engine's shapes, with its launches
    per call, its bound (the larger of the bytes it must move over
    3.35 TB/s and its FP32 operations over 67 TFLOP/s, the H100 SXM's
-   published peaks) and the share of that bound it reaches.
+   published peaks) and the share of that bound it reaches. The check
+   that no ``jax`` or ``sasktran2_tpu`` module is loaded is made again
+   before the kernel record.
 
 The line before the last is the kernel record as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -74,12 +77,20 @@ def thomas_bound(P, K, W, itemsize):
 
 
 def jacobi_bound(P, n, W, sweeps, itemsize):
-    """a read once, w and v written once; per matrix and sweep, n-1
-    rounds of 3 n^2 two-term rotations (3 FLOPs each) and n/2 rotation
-    angles (about 10 FLOPs each), then n(n-1) FLOPs of symmetrization."""
+    """a read once, w and v written once; per matrix, sweep and each of the
+    n-1 rounds the least FP32 work of A <- J^T A J and V <- V J with the n/2
+    disjoint rotations of the round: n/2 rotation angles (12 FLOPs each:
+    the half-angle tangent's difference, doubling, two-term norm, sqrt,
+    sum, divide, 1 + t^2, rsqrt and s = t c); the (n/2)(n/2-1)/2 2x2
+    blocks of A's upper triangle that lie off the diagonal, each a column
+    and a row rotation of four two-term sums (24 FLOPs); the n/2 diagonal
+    blocks in closed form, a_pp - t a_pq and a_qq + t a_pq (4 FLOPs); and
+    V's n^2 two-term sums (3 FLOPs each). No symmetrization: the input is
+    symmetric and A stays so."""
     nbytes = (2 * P * n * n * W + P * n * W) * itemsize
-    per_sweep = (n - 1) * (9 * n * n + 5 * n) + n * (n - 1)
-    return bound(nbytes, P * W * sweeps * per_sweep)
+    h = n // 2
+    per_round = 12 * h + 12 * h * (h - 1) + 4 * h + 3 * n * n
+    return bound(nbytes, P * W * sweeps * (n - 1) * per_round)
 
 
 def fail(msg):
@@ -90,6 +101,14 @@ def fail(msg):
 def check(ok, msg):
     if not ok:
         fail(msg)
+
+
+def check_no_jax(label):
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "sasktran2_tpu"))
+    print(f"[{label}] jax or sasktran2_tpu modules loaded: {foreign}",
+          flush=True)
+    check(not foreign, "the port loaded jax or the JAX package")
 
 
 def card_label():
@@ -281,26 +300,42 @@ def phase_jacobi(dev, label):
 
 
 def library_eigh_ms(batch, label):
-    """Time of ``torch.linalg.eigh`` on ``batch`` with PyTorch's default
-    linear-algebra backend, or, where that call refuses the batch, with
-    MAGMA; None where neither computes it."""
+    """Time of ``torch.linalg.eigh`` over the whole of ``batch`` on its
+    cuSOLVER route, in as few calls as cuSOLVER takes: where it refuses
+    the whole batch, in consecutive chunks of the largest size it accepts,
+    found by halving. MAGMA's one call on the whole batch is printed as a
+    note. None where cuSOLVER accepts no chunk."""
     import torch
 
-    for backend in ("default", "magma"):
-        try:
-            torch.backends.cuda.preferred_linalg_library(backend)
-            ms = cuda_ms(lambda: torch.linalg.eigh(batch), 5)
-        except RuntimeError as e:
-            print(f"[{label}] torch.linalg.eigh {tuple(batch.shape)} with the "
-                  f"{backend} backend failed: {str(e).splitlines()[0][:160]}",
-                  flush=True)
-            continue
-        finally:
-            torch.backends.cuda.preferred_linalg_library("default")
-        print(f"[{label}] torch.linalg.eigh {tuple(batch.shape)} f32, "
-              f"{backend} backend: {ms:.3f} ms", flush=True)
-        return ms
-    return None
+    n_mat = batch.shape[0]
+    chunk = n_mat
+    try:
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        while chunk >= 1:
+            try:
+                torch.linalg.eigh(batch[:chunk])
+                torch.cuda.synchronize()
+                break
+            except RuntimeError as e:
+                print(f"[{label}] torch.linalg.eigh, cuSOLVER route, refused "
+                      f"{chunk} matrices: {str(e).splitlines()[0][:120]}",
+                      flush=True)
+                chunk //= 2
+        ms = None
+        if chunk >= 1:
+            parts = list(batch.split(chunk))
+            ms = cuda_ms(lambda: [torch.linalg.eigh(b) for b in parts], 5)
+            print(f"[{label}] torch.linalg.eigh {tuple(batch.shape)} f32, "
+                  f"cuSOLVER route, {len(parts)} call(s) of <= {chunk} "
+                  f"matrices: {ms:.3f} ms for the whole batch", flush=True)
+        torch.backends.cuda.preferred_linalg_library("magma")
+        magma = cuda_ms(lambda: torch.linalg.eigh(batch), 2)
+        print(f"[{label}] note: torch.linalg.eigh {tuple(batch.shape)} f32 "
+              f"through MAGMA (a hybrid host and device route), one call: "
+              f"{magma:.3f} ms", flush=True)
+    finally:
+        torch.backends.cuda.preferred_linalg_library("default")
+    return ms
 
 
 def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label):
@@ -398,11 +433,7 @@ def main():
           f"device memory {peak_gb:.2f} GB", flush=True)
     check(launches["thomas"] > 0 and launches["jacobi"] > 0,
           "a kernel of the path was not launched")
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "sasktran2_tpu"))
-    print(f"[{label}] jax or sasktran2_tpu modules loaded: {foreign}",
-          flush=True)
-    check(not foreign, "the port loaded jax or the JAX package")
+    check_no_jax(label)
     rad = out["radiance"].to_numpy()
     wf_names = [k for k in out.keys() if k.startswith("wf_")]
     check(rad.shape == (1024, 4, 1), f"radiance shape {rad.shape}")
@@ -456,6 +487,7 @@ def main():
               f"{rec['plain_ms']:.3f} ms; library call {lib}; at the "
               f"engine's shape, f32", flush=True)
 
+    check_no_jax(label)
     kernels = [
         {"name": "thomas_block_tridiag_solve", "route": "cuda",
          "source": "sasktran2_tpu_torch/csrc/thomas.cu",

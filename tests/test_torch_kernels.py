@@ -5,7 +5,7 @@ interpreter mode, as ``tests/test_pallas_thomas.py`` and
 float64 (values to 1e-10 relative). A CPU tensor takes the plain twin and
 leaves the launch counters at 0. The CUDA kernels themselves run only on
 a GPU: those tests carry the ``cuda`` marker and skip without one. On the
-card, Thomas runs at K in {4, 8, 16, 24} with a ragged W = 1000 against
+card, Thomas runs at K in {4, 8, 16, 24} with ragged W = 1001 and 1004 against
 the dense f64 truth (f32, within max(4 x the plain twin's error, 1e-5),
 as ``tests/test_pallas_thomas.py`` holds the Pallas kernel) and against
 the plain twin in f64 (1e-12); Jacobi runs at n in {2, 8, 16, 24, 32}
@@ -120,17 +120,21 @@ def _dense_truth(lo, di, up, r, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W", [1001, 1004])
 @pytest.mark.parametrize("K", [4, 8, 16, 24])
-def test_thomas_kernel_ragged_w_on_gpu(cuda_device, K):
-    """f32 against the dense f64 truth; f64 against the plain twin."""
-    P, W = 9, 1000
+def test_thomas_kernel_ragged_w_on_gpu(cuda_device, K, W):
+    """f32 against the dense f64 truth; f64 against the plain twin. W =
+    1001 leaves a partial last block in both types and takes the kernel's
+    one-element copies; W = 1004 leaves a partial last block of 16-byte
+    copies in f32 (blocks of 8 lanes) and full blocks in f64."""
+    P = 9
     lo, di, up, r = _thomas_inputs(P, K, W, 40 + K)
     di = di + 2.0 * np.sqrt(K) * np.eye(K)[:, :, None]  # diagonal dominance
     args32 = [torch.tensor(a, dtype=torch.float32, device=cuda_device)
               for a in (lo, di, up, r)]
     got = thomas_cuda.thomas_solve(*args32).cpu().numpy()
     plain = thomas_cuda.thomas_solve_plain(*args32).cpu().numpy()
-    for w in (0, 1, 499, 997, 999):
+    for w in (0, 1, W // 2, W - 3, W - 1):
         truth = _dense_truth(lo, di, up, r, w)
         plain_err = np.max(np.abs(plain[:, :, w] - truth))
         kernel_err = np.max(np.abs(got[:, :, w] - truth))

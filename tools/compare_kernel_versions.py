@@ -13,6 +13,10 @@ the package. The current sources are built by the package. At the
 each by CUDA events over 20 launches, and prints the card's name and
 power limit, the ptxas report of every build, each time, and the largest
 difference between the two versions' outputs. Needs a GPU.
+
+Every change that makes one of these kernels faster runs it once, so
+that PERF.md's kernel table keeps the earlier time beside the new one
+from the same card and call.
 """
 
 from __future__ import annotations
