@@ -21,20 +21,31 @@ final line:
    function (timed here only; the port never calls it), on its cuSOLVER
    route in the fewest calls cuSOLVER accepts, and through MAGMA as a
    note.
-4. The port's engine end to end: 16 streams, P = 100 layers, 4 rays,
-   W = 1024 wavelengths, float32, full Jacobians, through
+4. The port's ground-viewing engine end to end: 16 streams, P = 100
+   layers, 4 rays, W = 1024 wavelengths, float32, full Jacobians, through
    ``Engine.calculate_radiance`` of an engine built with no ``device``
    (so on ``cuda``). Launch counts of both kernels must be > 0, and
-   neither ``jax`` nor any ``sasktran2_tpu`` module may be loaded; values must be finite, radiance > 0, and radiance and ``wf_*``
-   must match the JAX float64 golden values at 8 wavelengths. The same
-   case in float64 at those 8 wavelengths must match them to 1e-8.
-5. Times: the median of 5 warm engine calls (wavelengths/s) and each
-   kernel beside its plain twin at the engine's shapes, with its launches
-   per call, its bound (the larger of the bytes it must move over
-   3.35 TB/s and its FP32 operations over 67 TFLOP/s, the H100 SXM's
-   published peaks) and the share of that bound it reaches. The check
-   that no ``jax`` or ``sasktran2_tpu`` module is loaded is made again
-   before the kernel record.
+   neither ``jax`` nor any ``sasktran2_tpu`` module may be loaded; values
+   must be finite, radiance > 0, and radiance and ``wf_*`` must match the
+   JAX float64 golden values at 8 wavelengths. The same case in float64
+   at those 8 wavelengths must match them to 1e-8.
+5. Times: the median of 5 warm engine calls (wavelengths/s, with and
+   without Jacobians) and each kernel beside its plain twin at the
+   engine's shapes, with its launches per call, its bound (the larger of
+   the bytes it must move over 3.35 TB/s and its FP32 operations over
+   67 TFLOP/s, the H100 SXM's published peaks) and the share of that
+   bound it reaches.
+6. The 16-stream spherical limb scan (``scenarios.limb_case``: 20 limb
+   rays, exact single scatter, DO multiple scatter on a 2-point solar
+   zenith grid, W = 1024, float32, full Jacobians) with the checks of
+   phase 4 against ``golden_limb16.npz``, both kernels' launch counts of
+   its call, and the median of 3 warm calls with and without Jacobians,
+   as wavelengths/s and wavelength-lines-of-sight/s.
+7. The two-stream solver (``scenarios.twostream_case``, W = 1024) with
+   the same checks against ``golden_2str.npz`` and the same times; it
+   has no kernel. The check that no ``jax`` or ``sasktran2_tpu`` module
+   is loaded is made again before the kernel record, whose launch counts
+   are phase 4's.
 
 The line before the last is the kernel record as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -338,13 +349,17 @@ def library_eigh_ms(batch, label):
     return ms
 
 
-def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label):
+def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label,
+                   f32=False):
     """Max relative differences against the JAX float64 golden values:
-    radiance per element, each wf_* against its largest magnitude."""
+    radiance per element, each wf_* against its largest magnitude. For a
+    float32 run (``f32``) the JAX package's own float32 error on the same
+    case (``jax_f32_err_<name>`` in the golden file, from
+    ``tools/make_torch_golden.py``) is printed beside each, for
+    reference."""
     rad = out["radiance"].to_numpy()[idx]
     ref = golden["radiance"]
-    rad_err = float(np.max(np.abs(rad - ref) / np.abs(ref)))
-    wf_errs = {}
+    errs = {"radiance": float(np.max(np.abs(rad - ref) / np.abs(ref)))}
     for name in golden.files:
         if not name.startswith("wf_"):
             continue
@@ -352,15 +367,116 @@ def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label):
         ax = out[name].dims.index("wavelength")
         got = np.take(got, idx, axis=ax)
         ref_wf = golden[name]
-        wf_errs[name] = float(
+        errs[name] = float(
             np.max(np.abs(got - ref_wf)) / np.max(np.abs(ref_wf))
         )
-    print(f"[{label}] {what} vs JAX f64 golden at {len(idx)} wavelengths: "
-          f"radiance max rel {rad_err:.3e} (<= {rad_tol:g}); "
-          + ", ".join(f"{k} rel-to-max {v:.3e}" for k, v in wf_errs.items())
-          + f" (<= {wf_tol:g})", flush=True)
-    check(rad_err <= rad_tol, f"{what}: radiance vs golden")
-    check(all(v <= wf_tol for v in wf_errs.values()), f"{what}: wf vs golden")
+    tols = {k: rad_tol if k == "radiance" else wf_tol for k in errs}
+
+    def note(name):
+        if not f32:
+            return ""
+        return f", JAX f32 {float(golden[f'jax_f32_err_{name}']):.3e}"
+
+    print(f"[{label}] {what} vs JAX f64 golden at {len(idx)} wavelengths "
+          "(radiance max rel per element, wf_* rel to their max): "
+          + ", ".join(f"{k} {v:.3e} (<= {tols[k]:g}{note(k)})"
+                      for k, v in errs.items()), flush=True)
+    for k, v in errs.items():
+        check(v <= tols[k], f"{what}: {k} vs golden")
+
+
+def timed_calls(engine, atmo, reps):
+    """Wall times of ``reps`` warm engine calls, each ending in a device
+    synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.calculate_radiance(atmo)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def engine_case(sk, build, golden_path, wl, reps, what, label,
+                kernels_expected):
+    """One engine case of ``sasktran2_tpu_torch.scenarios`` end to end on
+    the card: the cold call in float32 with Jacobians through an engine
+    built with no device (so on ``cuda``), with the launches of both
+    kernels counted from zero and the peak device memory; finite outputs,
+    radiance > 0, and the golden checks (f32 radiance per element within
+    2e-3, each ``wf_*`` within 5e-2 of its largest magnitude; the same case
+    in float64 at the 8 golden wavelengths within 1e-8); then the median
+    of ``reps`` warm calls with and without Jacobians, as wavelengths/s
+    and wavelength-lines-of-sight/s. Returns the launch counts."""
+    import torch
+    from sasktran2_tpu_torch.ops import jacobi_cuda, thomas_cuda
+    from sasktran2_tpu_torch.scenarios import GOLDEN_INDICES
+
+    W = len(wl)
+    config, geometry, viewing, atmo = build(sk, "float32", wl)
+    engine = sk.Engine(config, geometry, viewing)  # no device: the card
+    check(engine._device.type == "cuda", "the engine did not default to cuda")
+    nlos = len(viewing.observer_rays)
+    print(f"[{label}] {what}: engine device {engine._device}; ray tracer: "
+          f"{engine.ray_tracer}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    thomas_cuda.thomas_solve.launches = 0
+    jacobi_cuda.jacobi_eigh.launches = 0
+    t0 = time.perf_counter()
+    out = engine.calculate_radiance(atmo)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {
+        "thomas": thomas_cuda.thomas_solve.launches,
+        "jacobi": jacobi_cuda.jacobi_eigh.launches,
+    }
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{label}] {what} W={W} f32 with Jacobians: first call "
+          f"{first_s:.2f} s, kernel launches {launches}, peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    if kernels_expected:
+        check(launches["thomas"] > 0 and launches["jacobi"] > 0,
+              f"{what}: a kernel of the path was not launched")
+    check_no_jax(label)
+    rad = out["radiance"].to_numpy()
+    wf_names = [k for k in out.keys() if k.startswith("wf_")]
+    check(rad.shape == (W, nlos, 1), f"{what}: radiance shape {rad.shape}")
+    finite = np.isfinite(rad).all() and all(
+        np.isfinite(out[k].to_numpy()).all() for k in wf_names)
+    print(f"[{label}] {what}: radiance and {wf_names} finite: "
+          f"{bool(finite)}; radiance > 0: {bool((rad > 0).all())}",
+          flush=True)
+    check(finite and (rad > 0).all(), f"{what}: non-finite or non-positive "
+          "output")
+    golden = np.load(golden_path)
+    check(np.allclose(golden["wavelengths_nm"], wl[GOLDEN_INDICES]),
+          f"{what}: golden file is for another wavelength grid")
+    compare_golden(out, golden, GOLDEN_INDICES, 2e-3, 5e-2,
+                   f"{what} f32 W={W}", label, f32=True)
+    config64, geometry64, viewing64, atmo64 = build(
+        sk, "float64", wl[GOLDEN_INDICES])
+    out64 = sk.Engine(config64, geometry64, viewing64, device="cuda:0")\
+        .calculate_radiance(atmo64)
+    compare_golden(out64, golden, np.arange(len(GOLDEN_INDICES)), 1e-8, 1e-8,
+                   f"{what} f64 W={len(GOLDEN_INDICES)}", label)
+
+    times = timed_calls(engine, atmo, reps)
+    med = statistics.median(times)
+    print(f"[{label}] {what} warm calls (s): {[round(t, 4) for t in times]}; "
+          f"median {med:.4f} s = {W / med:.1f} wavelengths/s = "
+          f"{W * nlos / med:.1f} wavelength-LOS/s (f32, full Jacobians)",
+          flush=True)
+    atmo.calculate_derivatives = False
+    times = timed_calls(engine, atmo, reps)
+    med = statistics.median(times)
+    print(f"[{label}] {what} radiance only (s): "
+          f"{[round(t, 4) for t in times]}; median {med:.4f} s = "
+          f"{W / med:.1f} wavelengths/s = {W * nlos / med:.1f} "
+          "wavelength-LOS/s", flush=True)
+    return launches
 
 
 def main():
@@ -373,12 +489,15 @@ def main():
     sys.path.insert(0, HERE)
     try:
         import sasktran2_tpu_torch as sk
-        from sasktran2_tpu_torch.ops import _build, jacobi_cuda, thomas_cuda
+        from sasktran2_tpu_torch.ops import _build
         from sasktran2_tpu_torch.scenarios import (
-            GOLDEN_INDICES,
+            GOLDEN_2STR_PATH,
+            GOLDEN_LIMB_PATH,
             GOLDEN_PATH,
+            limb_case,
             smoke_case,
             smoke_wavelengths,
+            twostream_case,
         )
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -409,74 +528,13 @@ def main():
     thomas_rec = phase_thomas(dev, label)
     jacobi_rec = phase_jacobi(dev, label)
 
-    # --- phase 4: the engine end to end --------------------------------------
+    # --- phases 4, 5: the ground-viewing engine end to end, and times ---------
     wl = smoke_wavelengths()
-    config, geometry, viewing, atmo = smoke_case(sk, "float32", wl)
-    engine = sk.Engine(config, geometry, viewing)  # no device: the card
-    check(engine._device.type == "cuda", "the engine did not default to cuda")
-    print(f"[{label}] engine device {engine._device}; ray tracer: "
-          f"{engine.ray_tracer}", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    thomas_cuda.thomas_solve.launches = 0
-    jacobi_cuda.jacobi_eigh.launches = 0
-    t0 = time.perf_counter()
-    out = engine.calculate_radiance(atmo)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {
-        "thomas": thomas_cuda.thomas_solve.launches,
-        "jacobi": jacobi_cuda.jacobi_eigh.launches,
-    }
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{label}] engine nstr=16 P=100 nlos=4 W=1024 f32 with Jacobians: "
-          f"first call {first_s:.2f} s, kernel launches {launches}, peak "
-          f"device memory {peak_gb:.2f} GB", flush=True)
-    check(launches["thomas"] > 0 and launches["jacobi"] > 0,
-          "a kernel of the path was not launched")
-    check_no_jax(label)
-    rad = out["radiance"].to_numpy()
-    wf_names = [k for k in out.keys() if k.startswith("wf_")]
-    check(rad.shape == (1024, 4, 1), f"radiance shape {rad.shape}")
-    finite = np.isfinite(rad).all() and all(
-        np.isfinite(out[k].to_numpy()).all() for k in wf_names)
-    print(f"[{label}] radiance and {wf_names} finite: {bool(finite)}; "
-          f"radiance > 0: {bool((rad > 0).all())}", flush=True)
-    check(finite and (rad > 0).all(), "non-finite or non-positive output")
-    golden = np.load(GOLDEN_PATH)
-    check(np.allclose(golden["wavelengths_nm"], wl[GOLDEN_INDICES]),
-          "golden file is for another wavelength grid")
-    compare_golden(out, golden, GOLDEN_INDICES, 2e-3, 5e-2,
-                   "engine f32 W=1024", label)
-    config64, geometry64, viewing64, atmo64 = smoke_case(
-        sk, "float64", wl[GOLDEN_INDICES])
-    out64 = sk.Engine(config64, geometry64, viewing64, device=dev)\
-        .calculate_radiance(atmo64)
-    compare_golden(out64, golden, np.arange(len(GOLDEN_INDICES)), 1e-8, 1e-8,
-                   "engine f64 W=8", label)
+    launches = engine_case(
+        sk, smoke_case, GOLDEN_PATH, wl, 5, "engine nstr=16 P=100 nlos=4",
+        label, kernels_expected=True,
+    )
 
-    # --- phase 5: times --------------------------------------------------------
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.calculate_radiance(atmo)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    print(f"[{label}] engine warm calls (s): {[round(t, 4) for t in times]}; "
-          f"median {med:.4f} s = {1024 / med:.1f} wavelengths/s "
-          f"(nstr=16, P=100, 4 rays, f32, full Jacobians)", flush=True)
-    atmo.calculate_derivatives = False
-    times_nojac = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.calculate_radiance(atmo)
-        torch.cuda.synchronize()
-        times_nojac.append(time.perf_counter() - t0)
-    med_nojac = statistics.median(times_nojac)
-    print(f"[{label}] engine radiance only: median {med_nojac:.4f} s = "
-          f"{1024 / med_nojac:.1f} wavelengths/s", flush=True)
     for name, rec in (("thomas", thomas_rec), ("jacobi", jacobi_rec)):
         lib = ("none" if rec["library_ms"] is None
                else f"{rec['library_ms']:.3f} ms")
@@ -486,6 +544,18 @@ def main():
               f"bound {rec['bound_ms'] / rec['ms']:.3f}; plain "
               f"{rec['plain_ms']:.3f} ms; library call {lib}; at the "
               f"engine's shape, f32", flush=True)
+
+    # --- phase 6: the 16-stream limb scan --------------------------------------
+    limb_launches = engine_case(
+        sk, limb_case, GOLDEN_LIMB_PATH, wl, 3, "limb nstr=16 P=100 nlos=20",
+        label, kernels_expected=True,
+    )
+    print(f"[{label}] limb scan kernel launches per call with Jacobians: "
+          f"{limb_launches}", flush=True)
+
+    # --- phase 7: the two-stream solver ----------------------------------------
+    engine_case(sk, twostream_case, GOLDEN_2STR_PATH, wl, 3,
+                "two-stream P=100 nlos=1", label, kernels_expected=False)
 
     check_no_jax(label)
     kernels = [

@@ -1,5 +1,6 @@
-"""Single-scatter-albedo clamp and per-azimuth-mode angular tables of the
-discrete-ordinates solver (counterpart of ``sasktran2_tpu/rt/disco.py:61-151``).
+"""Single-scatter-albedo clamp, solar-beam attenuation and per-azimuth-mode
+angular tables of the discrete-ordinates solvers (counterpart of
+``sasktran2_tpu/rt/disco.py:61-151``).
 
 The tables are host-side numpy, built by the same code as the JAX
 package's; a test pins them array-equal.
@@ -10,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+import torch
 
 from ..ops.quadrature import streams
 from ..ops.wigner import normalized_alp
@@ -27,6 +30,28 @@ def clamp_ssa(omega):
     d(clamp)/d(omega) = 1 everywhere, so ssa weighting functions of a
     pure-Rayleigh (omega = 1) atmosphere are not zeroed."""
     return omega + (omega.clamp(max=SSA_CEILING) - omega).detach()
+
+
+def beam_attenuation(dtau, mu0: float, chapman=None):
+    """The direct solar beam through the layers (TOA first): its
+    transmission at each layer top, t_top [P, W], and at the ground,
+    t_ground [W], and each layer's mean slant factor sbar [P, W] (the slant
+    optical depth across the layer over its dtau). ``chapman`` [P, P]
+    (numpy) maps the layer dtau to the slant optical depth down to each
+    layer's bottom; None is the plane-parallel 1/mu0
+    (``sasktran2_tpu/rt/disco_nstream.py:413-425``)."""
+    dt, dev = dtau.dtype, dtau.device
+    P = dtau.shape[0]
+    if chapman is None:
+        c = torch.tril(torch.ones((P, P), dtype=dt, device=dev)) / mu0
+    else:
+        c = torch.as_tensor(chapman, dtype=dt, device=dev)
+    slant_bottom = torch.einsum("pq,qw->pw", c, dtau)
+    slant_top = torch.cat(
+        [torch.zeros_like(slant_bottom[:1]), slant_bottom[:-1]], dim=0
+    )
+    sbar = (slant_bottom - slant_top) / torch.clamp(dtau, min=1e-30)
+    return torch.exp(-slant_top), torch.exp(-slant_bottom[-1]), sbar
 
 
 @dataclass(frozen=True)

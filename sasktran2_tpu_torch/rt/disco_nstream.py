@@ -30,7 +30,13 @@ from ..ops.lanes import (
     lane_t,
 )
 from ..ops.linalg import ddiff2, ediff
-from .disco import KMIN, ModeTables, build_mode_tables, clamp_ssa
+from .disco import (
+    KMIN,
+    ModeTables,
+    beam_attenuation,
+    build_mode_tables,
+    clamp_ssa,
+)
 
 __all__ = ["build_mode_tables", "solve_nstream"]
 
@@ -50,10 +56,12 @@ def _mode_radiance(
     m_idx, lam, lam_sun, lam_user, parity,
     dtau, omega, beta, t_top, sbar, t_ground,
     albedo, mu, w, mu0, user_mu, user_up, include_ss, f0,
+    with_levels=False,
 ):
     """One azimuth mode, wavelength-minor. ``m_idx`` is the mode number;
     lam [L, N], lam_sun [L], lam_user [L, U] and parity [L] are its
-    tables. Returns radiance [U, W]."""
+    tables. Returns radiance [U, W], and with ``with_levels`` also the
+    stream fields at the layer tops and bottoms, a dict of [P, N, W]."""
     dt = dtau.dtype
     dev = dtau.device
 
@@ -188,6 +196,19 @@ def _mode_radiance(
     coeff_l = sol[..., :N, :]                               # [P, N(A), W]
     coeff_m = sol[..., N:, :]
 
+    if with_levels:
+        ea = e[:, None, :, :]
+        levels = {
+            "i_plus_top": project(x, coeff_l) + project(y * ea, coeff_m)
+            + project(y, phi_pt),
+            "i_minus_top": project(y, coeff_l) + project(x * ea, coeff_m)
+            + project(x, phi_pt),
+            "i_plus_bot": project(x * ea, coeff_l) + project(y, coeff_m)
+            + project(x, phi_mb),
+            "i_minus_bot": project(y * ea, coeff_l) + project(x, coeff_m)
+            + project(y, phi_mb),
+        }
+
     # --- post-processing -------------------------------------------------
     lamw = lam * const(w)[None, :]                          # [L, N]
     t1 = torch.einsum("lj,pjaw->plaw", lamw, x)
@@ -279,7 +300,10 @@ def _mode_radiance(
         ground_up = ground_up + ground_sun[None, :]
     total_od_user = torch.sum(od_user, dim=0)
     rad_up = rad_up + torch.exp(-total_od_user) * ground_up
-    return torch.where(user_up[:, None], rad_up, rad_dn)
+    rad = torch.where(user_up[:, None], rad_up, rad_dn)
+    if with_levels:
+        return rad, levels
+    return rad
 
 
 def solve_nstream(
@@ -299,12 +323,17 @@ def solve_nstream(
     surface_emission=None,
     brdf=None,
     brdf_args=None,
+    return_internal: bool = False,
 ):
     """N-stream plane-parallel DO radiance, wavelength-minor.
 
     dtau/omega [P, W] (TOA first); beta [L, P, W]; albedo [W]; ``tables``
     from ``rt.disco.build_mode_tables``; ``chapman`` an optional [P, P]
-    pseudo-spherical chapman matrix. Returns radiance [U, W].
+    pseudo-spherical chapman matrix. Returns radiance [U, W]; with
+    ``return_internal`` also the dict that ``rt.do_source`` evaluates
+    along rays: the level fields (``levels``, each [M, P, N, W]), the
+    mode tables that were used, the clamped omega, beta, the beam's
+    t_top and sbar, dtau, the quadrature weights and f0.
 
     The azimuth modes run as a Python loop; under autograd each mode is
     checkpointed, so backward recomputes one mode at a time instead of
@@ -331,19 +360,7 @@ def solve_nstream(
     mu0 = tables.mu0
     mu = np.asarray(tables.mu)
     w = np.asarray(tables.w)
-    P = dtau.shape[0]
-
-    if chapman is None:
-        chapman_m = torch.tril(torch.ones((P, P), dtype=dt, device=dev)) / mu0
-    else:
-        chapman_m = torch.as_tensor(chapman, dtype=dt, device=dev)
-    slant_bottom = torch.einsum("pq,qw->pw", chapman_m, dtau)
-    slant_top = torch.cat(
-        [torch.zeros_like(slant_bottom[:1]), slant_bottom[:-1]], dim=0
-    )
-    t_top = torch.exp(-slant_top)
-    t_ground = torch.exp(-slant_bottom[-1])
-    sbar = (slant_bottom - slant_top) / torch.clamp(dtau, min=1e-30)
+    t_top, t_ground, sbar = beam_attenuation(dtau, mu0, chapman)
 
     M = tables.lam_stream.shape[0]
     if num_azimuth is not None:
@@ -367,6 +384,7 @@ def solve_nstream(
     U = len(user_mu)
     W = dtau.shape[-1]
     rad = torch.zeros((U, W), dtype=dt, device=dev)
+    levels = []
     for m in range(M):
         args = (
             m,
@@ -376,11 +394,32 @@ def solve_nstream(
             const(tables.parity[m, :luse]),
             dtau, omega, beta, t_top, sbar, t_ground,
             albedo, mu, w, mu0, user_mu, user_up_t, include_ss, f0,
+            return_internal,
         )
         if torch.is_grad_enabled():
             r_m = checkpoint(_mode_radiance, *args, use_reentrant=False)
         else:
             r_m = _mode_radiance(*args)
+        if return_internal:
+            r_m, lv = r_m
+            levels.append(lv)
         az = torch.cos(m * (math.pi - user_azimuth))[:, None]
         rad = rad + az * r_m
-    return rad
+    if not return_internal:
+        return rad
+    internal = {
+        "levels": {
+            k: torch.stack([lv[k] for lv in levels]) for k in levels[0]
+        },
+        "lam": np.asarray(tables.lam_stream[:M, :luse]),
+        "lam_sun": np.asarray(tables.lam_sun[:M, :luse]),
+        "parity": np.asarray(tables.parity[:M, :luse]),
+        "omega": clamp_ssa(omega),
+        "beta": beta,
+        "t_top": t_top,
+        "sbar": sbar,
+        "dtau": dtau,
+        "w_quad": w,
+        "f0": f0,
+    }
+    return rad, internal

@@ -1,8 +1,8 @@
 """Host-side spherical-shell and plane-parallel ray tracing.
 
-(Copy of ``sasktran2_tpu/rt/raytrace.py`` for the PyTorch port, without
-the solar-table mode; ``tests/test_torch_host_copies.py`` pins its tables
-to the original's.)
+(Copy of ``sasktran2_tpu/rt/raytrace.py`` for the PyTorch port;
+``tests/test_torch_host_copies.py`` pins its tables, and those of
+``apply_solar_table``, to the original's.)
 
 The reference traces rays in C++/Rust (``upstream SASKTRAN2 cpp/lib/raytracing/
 spherical_shell.cpp``, ``rust/sasktran2-core/src/raytracer/trace.rs``) into
@@ -926,3 +926,69 @@ def _trace_native(radii, earth_radius_m, rays) -> TracedRays | None:
         sin2rot=sin2rot,
     )
 
+
+def apply_solar_table(traced: TracedRays, altitudes_m, earth_radius_m,
+                      n_sza: int = 100) -> TracedRays:
+    """Replace the exact per-boundary solar OD weights with rows
+    interpolated from a precomputed (altitude x cos_sza) table — the
+    ``SingleScatterSource.Table`` mode (reference
+    ``cpp/lib/solar/solartransmissiontable.cpp``: trace rays to the sun
+    from every (level, SZA-grid) point once, then bilinearly interpolate
+    OD at each ray boundary).
+
+    Because both the table and the interpolation are static, the result is
+    simply a recomposed ``sun_weights`` array — the jitted compute path is
+    identical to the exact mode.
+    """
+    alts = np.asarray(altitudes_m, dtype=np.float64)
+    radii = earth_radius_m + alts
+    A = len(alts)
+
+    # cos_sza grid spanning the rays' boundary values (reference
+    # min_max_cos_sza_of_all_rays; 100-point grid)
+    bmask = np.zeros_like(traced.cos_sza)
+    bmask[:, :-1] += traced.mask
+    bmask[:, 1:] += traced.mask
+    valid = bmask > 0
+    cs = traced.cos_sza[valid]
+    lo, hi = float(cs.min()), float(cs.max())
+    if hi - lo < 1e-9:
+        hi = lo + 1e-9
+    sza_grid = np.linspace(lo, hi, max(2, n_sza))
+    G = sza_grid.size
+
+    # table rows: OD-to-sun weight vectors at every (level, sza) node
+    table = np.zeros((A, G, A))
+    for a in range(A):
+        for g in range(G):
+            table[a, g] = _sun_od_weights(
+                radii[a], float(sza_grid[g]), radii, earth_radius_m
+            )
+
+    # boundary coordinates: altitude from the interpolation weights,
+    # cos_sza stored directly
+    b_alt = traced.interp_weights @ alts            # [R, S+1]
+    b_cs = np.clip(traced.cos_sza, sza_grid[0], sza_grid[-1])
+
+    ja = np.clip(np.searchsorted(alts, b_alt) - 1, 0, A - 2)
+    fa = np.clip(
+        (b_alt - alts[ja]) / (alts[ja + 1] - alts[ja]), 0.0, 1.0
+    )
+    jg = np.clip(np.searchsorted(sza_grid, b_cs) - 1, 0, G - 2)
+    fg = np.clip(
+        (b_cs - sza_grid[jg]) / (sza_grid[jg + 1] - sza_grid[jg]),
+        0.0, 1.0,
+    )
+
+    fa_, fg_ = fa[..., None], fg[..., None]
+    sun_weights = (
+        (1 - fa_) * ((1 - fg_) * table[ja, jg] + fg_ * table[ja, jg + 1])
+        + fa_ * ((1 - fg_) * table[ja + 1, jg]
+                 + fg_ * table[ja + 1, jg + 1])
+    )
+    # masked boundaries keep zero weights so padded segments stay inert
+    sun_weights *= (valid > 0)[..., None]
+
+    from dataclasses import replace
+
+    return replace(traced, sun_weights=sun_weights)

@@ -6,11 +6,13 @@ streams, 20 altitudes and 3 wavelengths, in plane-parallel geometry
 (constituent atmosphere, Legendre Jacobians on) and pseudo-spherical
 geometry (raw input atmosphere carried over by
 ``params.atmosphere_from_reference``, two solar zenith groups).
-Configurations outside the ported slice raise ``NotImplementedError``;
-an engine with no device named needs a GPU."""
+Configurations outside the ported slice (successive orders, DO thermal
+emission, polarized radiance, flux observers) raise
+``NotImplementedError``; an engine with no device named needs a GPU."""
 
 import numpy as np
 import pytest
+import torch
 
 import sasktran2_tpu as sk
 import sasktran2_tpu_torch as skt
@@ -131,10 +133,11 @@ def _ground_viewing(flux=False):
 
 
 @pytest.mark.parametrize(("config", "viewing", "match"), [
-    (lambda: _config(skt, nstr=2), _ground_viewing, "two-stream"),
-    (lambda: _config(skt, ms=skt.MultipleScatterSource.TwoStream),
-     _ground_viewing, "two-stream"),
-    (lambda: _config(skt), _limb_viewing, "limb"),
+    (lambda: _config(skt, ms=skt.MultipleScatterSource.SuccessiveOrders),
+     _ground_viewing, "successive orders"),
+    (lambda: _config(skt, emission_source=skt.EmissionSource.DiscreteOrdinates),
+     _ground_viewing, "thermal emission"),
+    (lambda: _config(skt, num_stokes=3), _limb_viewing, "polarized"),
     (lambda: _config(skt, num_stokes=3), _ground_viewing, "polarized"),
     (lambda: _config(skt), lambda: _ground_viewing(flux=True), "flux"),
 ])
@@ -161,3 +164,36 @@ def test_reference_objects_refused(foreign):
         engine = skt.Engine(config, geometry, viewing, device="cpu")
         with pytest.raises(TypeError, match="atmosphere_from_reference"):
             engine.calculate_radiance(ref[3])
+
+
+def test_layer_optical_gradients_in_float32():
+    """The layer omega and beta are level means weighted by extinction and
+    scattering. Their gradients with respect to the level extinction, in
+    float32 down to the 1e-11 /m of the top of the atmosphere, agree with
+    float64 to 1e-4 of their largest magnitude, and vanish exactly where
+    ssa and the phase expansion do not vary with altitude (a Rayleigh
+    atmosphere)."""
+    engine = skt.Engine(_config(skt), _geometry(skt, "PlaneParallel"),
+                        _ground_viewing(), device="cpu")
+    rng = np.random.default_rng(3)
+    A = len(ALTITUDES)
+    ext = 1e-5 * np.exp(-ALTITUDES / 7000.0)[None] * rng.uniform(
+        0.9, 1.1, size=(2, A))
+    leg = np.broadcast_to(np.array([1.0, 0.0, 0.5, 0.0]), (2, A, 4))
+    for ssa, exact_zero in ((np.ones((2, A)), True),
+                            (rng.uniform(0.5, 1.0, size=(2, A)), False)):
+        grads = {}
+        for dt in (torch.float32, torch.float64):
+            k = torch.tensor(ext, dtype=dt, requires_grad=True)
+            _, omega, beta = engine._layer_optical(
+                k, torch.tensor(ssa, dtype=dt), torch.tensor(leg, dtype=dt))
+            ct = np.random.default_rng(4).normal(size=omega.shape)
+            cb = np.random.default_rng(5).normal(size=beta.shape)
+            loss = (omega * torch.tensor(ct, dtype=dt)).sum() + (
+                beta * torch.tensor(cb, dtype=dt)).sum()
+            grads[dt] = torch.autograd.grad(loss, k)[0].double().numpy()
+        g32, g64 = grads[torch.float32], grads[torch.float64]
+        if exact_zero:
+            assert np.all(g32 == 0.0) and np.all(g64 == 0.0)
+        else:
+            assert np.max(np.abs(g32 - g64)) <= 1e-4 * np.max(np.abs(g64))

@@ -1,10 +1,12 @@
 """The port's copies of the JAX package's host modules, pinned bit-equal to
-the originals: the ray tracer (native and numpy), the stream quadrature and
-associated Legendre tables, ``Config``, the US76 + Rayleigh + Lambertian
-atmosphere, and ``params.atmosphere_from_reference``. The geometries are
-the 16-stream slice's (cut to 20 altitudes) and both cases of
-``tests/test_torch_engine.py``; each side builds its objects with its own
-package from the same numpy inputs."""
+the originals: the ray tracer (native and numpy) and its solar-table mode,
+the single-scatter phase tables, the DO ray-source angular tables, the
+stream quadrature and associated Legendre tables, ``Config``, the US76 +
+Rayleigh + Lambertian atmosphere, and ``params.atmosphere_from_reference``.
+The geometries are the 16-stream slice's (cut to 20 altitudes), both cases
+of ``tests/test_torch_engine.py`` and a spherical limb scan with a
+ground-viewing ray; each side builds its objects with its own package from
+the same numpy inputs."""
 
 import dataclasses
 
@@ -16,11 +18,13 @@ import sasktran2_tpu_torch as skt
 from sasktran2_tpu import config as config_ref
 from sasktran2_tpu.ops import quadrature as quadrature_ref
 from sasktran2_tpu.ops import wigner as wigner_ref
+from sasktran2_tpu.rt import do_source as do_source_ref
 from sasktran2_tpu.rt import raytrace as raytrace_ref
+from sasktran2_tpu.rt import singlescatter as singlescatter_ref
 from sasktran2_tpu_torch import config as config_port
 from sasktran2_tpu_torch.ops import quadrature, wigner
 from sasktran2_tpu_torch.params import atmosphere_from_reference
-from sasktran2_tpu_torch.rt import raytrace
+from sasktran2_tpu_torch.rt import do_source, raytrace, singlescatter
 
 ALTITUDES = np.linspace(0.0, 100000.0, 20)
 WAVELENGTHS = np.array([310.0, 400.0, 550.0])
@@ -39,7 +43,12 @@ GEOMETRIES = {
         ("SolarAnglesObserverLocation", (0.4, 1.1, -0.8, 200000.0)),
         ("GroundViewingSolar", (0.4, 2.0, 1.0, 200000.0)),
     ]),
+    "limb_spherical": ("Spherical", 0.6, [
+        ("TangentAltitudeSolar", (t, 0.4, 200000.0, 0.6))
+        for t in (10000.0, 35000.0, 80000.0)
+    ] + [("GroundViewingSolar", (0.6, 0.5, 0.8, 200000.0))]),
 }
+LIMB = "limb_spherical"
 
 
 def _build(pkg, name):
@@ -87,6 +96,40 @@ def test_trace_spherical_equal(reference_traces, name, use_native):
             getattr(got, field.name), getattr(ref, field.name),
             err_msg=field.name,
         )
+
+
+def test_solar_table_equal(reference_traces):
+    """``apply_solar_table`` (``SingleScatterSource.Table``) recomposes the
+    same sun weights, at the default and at a coarse solar-zenith grid."""
+    _, geometry, _ = _build(skt, LIMB)
+    traced = reference_traces[LIMB, False]
+    for kw in ({}, {"n_sza": 7}):
+        got = raytrace.apply_solar_table(
+            traced, geometry.altitudes(), geometry.earth_radius_m, **kw)
+        ref = raytrace_ref.apply_solar_table(
+            traced, geometry.altitudes(), geometry.earth_radius_m, **kw)
+        for field in dataclasses.fields(ref):
+            np.testing.assert_array_equal(
+                getattr(got, field.name), getattr(ref, field.name),
+                err_msg=field.name,
+            )
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_ray_source_tables_equal(reference_traces, name):
+    """The single-scatter phase tables and the DO ray-source angular
+    tables of every geometry."""
+    traced = reference_traces[name, False]
+    for nleg in (4, 16):
+        np.testing.assert_array_equal(
+            singlescatter.phase_tables(traced, nleg),
+            singlescatter_ref.phase_tables(traced, nleg),
+        )
+    got = do_source.build_ray_angular_tables(traced, 16, 16)
+    ref = do_source_ref.build_ray_angular_tables(traced, 16, 16)
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
 @pytest.mark.parametrize("refraction", ["los", "solar"])

@@ -2,7 +2,8 @@
 
 In a fresh interpreter: import ``sasktran2_tpu_torch``, build a US76 +
 Rayleigh + Lambertian atmosphere with the port's constituents, run a tiny
-engine on the CPU, and check that neither ``jax`` nor any ``sasktran2_tpu``
+spherical engine with a ground-viewing and a limb ray, exact single
+scatter and DO multiple scatter on the CPU, and check that neither ``jax`` nor any ``sasktran2_tpu``
 module is in ``sys.modules`` and that the host ray tracer was built inside
 the port. A static pass parses every module of the port, and
 ``chip_smoke.py``, for such imports. With no GPU, an engine that names no
@@ -32,15 +33,16 @@ SCRIPT = textwrap.dedent("""
     config = sk.Config(
         num_streams=4,
         multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
-        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        single_scatter_source=sk.SingleScatterSource.Exact,
     )
     geometry = sk.Geometry1D(
         cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
         altitude_grid_m=np.linspace(0.0, 100000.0, 6),
-        geometry_type=sk.GeometryType.PseudoSpherical,
+        geometry_type=sk.GeometryType.Spherical,
     )
     viewing = sk.ViewingGeometry()
     viewing.add_ray(sk.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
+    viewing.add_ray(sk.TangentAltitudeSolar(30000.0, 0.3, 200000.0, 0.6))
     atmo = sk.Atmosphere(geometry, config, wavelengths_nm=[350.0, 600.0])
     sk.climatology.us76.add_us76_standard_atmosphere(atmo)
     atmo["rayleigh"] = sk.constituent.Rayleigh()
@@ -48,7 +50,7 @@ SCRIPT = textwrap.dedent("""
     engine = sk.Engine(config, geometry, viewing, device="cpu")
     out = engine.calculate_radiance(atmo)
     rad = out["radiance"].to_numpy()
-    assert rad.shape == (2, 1, 1) and np.all(rad > 0), rad
+    assert rad.shape == (2, 2, 1) and np.all(rad > 0), rad
     assert "wf_rayleigh_pressure_pa" in out
     lib = native.get_native_lib()
     if lib is not None:

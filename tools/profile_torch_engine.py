@@ -1,24 +1,38 @@
-"""Where the time goes in the PyTorch port's 16-stream engine call on a GPU.
+"""Where the time goes in one of the PyTorch port's engine calls on a GPU.
 
-    python tools/profile_torch_engine.py [--trace engine_trace.json]
+    python tools/profile_torch_engine.py [--case ground|limb|2str]
+        [--trace engine_trace.json] [--tree PATH] [--time N]
 
-Builds ``sasktran2_tpu_torch.scenarios.smoke_case`` at W = 1024 in
-float32 on ``cuda:0``, warms up, then profiles one ``calculate_radiance``
-call with Jacobians and one without under ``torch.profiler``. For each it
-prints the wall time, the device time summed over kernels and copies, the
-device busy share (device time / wall time), the number of device
-kernels, and the operators with the most self device time. Needs a GPU.
+Builds the case of ``sasktran2_tpu_torch.scenarios`` (``ground``: the
+16-stream ground-viewing ``smoke_case``, the default; ``limb``: the
+16-stream limb scan ``limb_case``; ``2str``: ``twostream_case``) at
+W = 1024 in float32 on ``cuda:0``, warms up, then profiles one
+``calculate_radiance`` call with Jacobians and one without under
+``torch.profiler``. For each it prints the wall time, the device time
+summed over kernels and copies, the device busy share (device time / wall
+time), the number of device kernels, the launches of both CUDA kernels,
+and the operators with the most self device time. Needs a GPU.
+
+``--time N`` skips the profiler: after the cold call it times N warm
+calls with Jacobians (host clock, each ending in a device synchronize)
+and prints one JSON line with the times, their median and the
+wavelengths/s. ``--tree PATH`` imports the port from another checkout of
+the repo (an earlier commit unpacked with ``git archive``), so that two
+trees can be timed in turns, in separate processes, within one call on
+one card; the ground case exists in every tree.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _device_us(evt):
@@ -31,6 +45,10 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from sasktran2_tpu_torch.ops import jacobi_cuda, thomas_cuda
+
+    thomas_cuda.thomas_solve.launches = 0
+    jacobi_cuda.jacobi_eigh.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -44,7 +62,9 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
     device_s = sum(e.device_time_total for e in kernels) / 1e6
     print(f"[{label}] wall {wall:.4f} s (profiler on), device time "
           f"{device_s:.4f} s, device busy {100 * device_s / wall:.1f}%, "
-          f"{len(kernels)} device kernels/copies", flush=True)
+          f"{len(kernels)} device kernels/copies; Thomas launches "
+          f"{thomas_cuda.thomas_solve.launches}, Jacobi launches "
+          f"{jacobi_cuda.jacobi_eigh.launches}", flush=True)
     rows = sorted(prof.key_averages(), key=_device_us, reverse=True)[:top]
     for e in rows:
         print(f"    {_device_us(e) / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
@@ -55,31 +75,60 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--case", choices=["ground", "limb", "2str"],
+                        default="ground")
     parser.add_argument("--trace", default=None,
                         help="write the Jacobian call's chrome trace here")
+    parser.add_argument("--tree", default=REPO,
+                        help="checkout whose sasktran2_tpu_torch to import")
+    parser.add_argument("--time", type=int, default=0, metavar="N",
+                        help="time N warm calls instead of profiling")
     args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
 
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("profile_torch_engine needs a GPU")
     import sasktran2_tpu_torch as sk
-    from sasktran2_tpu_torch.scenarios import smoke_case, smoke_wavelengths
+    from sasktran2_tpu_torch import scenarios
+
+    build = {
+        "ground": "smoke_case", "limb": "limb_case", "2str": "twostream_case",
+    }[args.case]
+    build = getattr(scenarios, build)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    config, geometry, viewing, atmo = smoke_case(
-        sk, "float32", smoke_wavelengths()
+    config, geometry, viewing, atmo = build(
+        sk, "float32", scenarios.smoke_wavelengths()
     )
     engine = sk.Engine(config, geometry, viewing, device="cuda:0")
+    if args.time:
+        engine.calculate_radiance(atmo)
+        times = []
+        for _ in range(args.time):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.calculate_radiance(atmo)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        print(json.dumps({
+            "tree": os.path.abspath(args.tree), "case": args.case,
+            "card": card, "times_s": times, "median_s": med,
+            "wavelengths_per_s": atmo.num_wavelengths / med,
+        }), flush=True)
+        return
     for _ in range(2):
         engine.calculate_radiance(atmo)
-    profile_call(engine, atmo, f"{card}] [with Jacobians", args.trace)
+    profile_call(engine, atmo, f"{card}] [{args.case} with Jacobians",
+                 args.trace)
     atmo.calculate_derivatives = False
     engine.calculate_radiance(atmo)
-    profile_call(engine, atmo, f"{card}] [radiance only")
+    profile_call(engine, atmo, f"{card}] [{args.case} radiance only")
 
 
 if __name__ == "__main__":
