@@ -43,9 +43,36 @@ final line:
    as wavelengths/s and wavelength-lines-of-sight/s.
 7. The two-stream solver (``scenarios.twostream_case``, W = 1024) with
    the same checks against ``golden_2str.npz`` and the same times; it
-   has no kernel. The check that no ``jax`` or ``sasktran2_tpu`` module
-   is loaded is made again before the kernel record, whose launch counts
-   are phase 4's.
+   has no kernel.
+8. The kernel instances of the polarized path, each at a polarized
+   engine's own inputs (captured in a radiance-only call): K3 at
+   [100, 24, 24, 1024] (pol16) and [100, 6, 6, 1024] (pol4), K1/K2 at
+   [100, 12, 12, 1024] (pol4), each against its plain twin and a float64
+   truth, timed beside its bound (and ``torch.linalg.eigh`` for K3); the
+   eigen-residual of the engine's 7-sweep n = 24 eigensolves; and the
+   time of one K = 48 block-Thomas solve, which takes the torch-op loop
+   as the reference takes its scan (no kernel at K > 24).
+9. Flux observers (``scenarios.flux16_case``: 16 streams, one ray, six
+   observers, all four flux types) with the checks of phase 4 against
+   ``golden_flux16.npz``, the fluxes and their weighting functions
+   included.
+10. Polarized (I, Q, U) at 4 streams (``scenarios.pol4_case``) against
+    ``golden_pol4.npz``.
+11. Polarized at 16 streams (``scenarios.pol16_case``), which the JAX
+    package cannot compile on the CPU: (a) the vector solver on the card
+    against the JAX f64 solver on the same layers
+    (``golden_pol16_solver.npz``); (b) the engine in float32 against the
+    port's own float64 engine on the card; (c) I, Q, U and DOLP of a
+    conservative Rayleigh slab at 16 against 8 streams.
+12. The polarized 16-stream limb scan (``scenarios.limbpol16_case``)
+    against the port's own float64 engine, as 11 (b).
+
+Each engine case prints its launches per kernel instance, the peak device
+memory, the warm-call times with and without Jacobians and the Jacobian
+rows' share. The check that no ``jax`` or ``sasktran2_tpu`` module is
+loaded is made again before the kernel record, which lists every kernel
+instance with its launches in its own case (and in every case that
+launched it) and, apart, the K = 48 torch-op path.
 
 The line before the last is the kernel record as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -310,7 +337,7 @@ def phase_jacobi(dev, label):
     return record
 
 
-def library_eigh_ms(batch, label):
+def library_eigh_ms(batch, label, magma=True):
     """Time of ``torch.linalg.eigh`` over the whole of ``batch`` on its
     cuSOLVER route, in as few calls as cuSOLVER takes: where it refuses
     the whole batch, in consecutive chunks of the largest size it accepts,
@@ -339,11 +366,12 @@ def library_eigh_ms(batch, label):
             print(f"[{label}] torch.linalg.eigh {tuple(batch.shape)} f32, "
                   f"cuSOLVER route, {len(parts)} call(s) of <= {chunk} "
                   f"matrices: {ms:.3f} ms for the whole batch", flush=True)
-        torch.backends.cuda.preferred_linalg_library("magma")
-        magma = cuda_ms(lambda: torch.linalg.eigh(batch), 2)
-        print(f"[{label}] note: torch.linalg.eigh {tuple(batch.shape)} f32 "
-              f"through MAGMA (a hybrid host and device route), one call: "
-              f"{magma:.3f} ms", flush=True)
+        if magma:
+            torch.backends.cuda.preferred_linalg_library("magma")
+            magma_ms = cuda_ms(lambda: torch.linalg.eigh(batch), 2)
+            print(f"[{label}] note: torch.linalg.eigh {tuple(batch.shape)} "
+                  f"f32 through MAGMA (a hybrid host and device route), one "
+                  f"call: {magma_ms:.3f} ms", flush=True)
     finally:
         torch.backends.cuda.preferred_linalg_library("default")
     return ms
@@ -351,38 +379,39 @@ def library_eigh_ms(batch, label):
 
 def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label,
                    f32=False):
-    """Max relative differences against the JAX float64 golden values:
-    radiance per element, each wf_* against its largest magnitude. For a
-    float32 run (``f32``) the JAX package's own float32 error on the same
-    case (``jax_f32_err_<name>`` in the golden file, from
-    ``tools/make_torch_golden.py``) is printed beside each, for
-    reference."""
-    rad = out["radiance"].to_numpy()[idx]
-    ref = golden["radiance"]
-    errs = {"radiance": float(np.max(np.abs(rad - ref) / np.abs(ref)))}
-    for name in golden.files:
-        if not name.startswith("wf_"):
-            continue
+    """Errors against reference values (``golden``: a dict or an npz of
+    the JAX float64 golden values, or the port's own float64 run), by
+    ``scenarios.golden_error``: radiance and fluxes per element (the
+    polarized Q and U relative to their largest magnitude), each ``wf_*``
+    against its largest magnitude. For a float32 run (``f32``) the JAX
+    package's own float32 error on the same case (``jax_f32_err_<name>``
+    in the golden file, from ``tools/make_torch_golden.py``) is printed
+    beside each where the file has it."""
+    from sasktran2_tpu_torch.scenarios import golden_error
+
+    names = [k for k in golden if k == "radiance" or k.startswith("wf_")
+             or (k.endswith("_flux") and not k.startswith("jax_f32_err_"))]
+    errs = {}
+    for name in names:
         got = out[name].to_numpy()
         ax = out[name].dims.index("wavelength")
-        got = np.take(got, idx, axis=ax)
-        ref_wf = golden[name]
-        errs[name] = float(
-            np.max(np.abs(got - ref_wf)) / np.max(np.abs(ref_wf))
-        )
-    tols = {k: rad_tol if k == "radiance" else wf_tol for k in errs}
+        errs[name] = golden_error(name, np.take(got, idx, axis=ax),
+                                  golden[name])
+    tols = {k: wf_tol if k.startswith("wf_") else rad_tol for k in errs}
 
     def note(name):
-        if not f32:
+        key = f"jax_f32_err_{name}"
+        if not f32 or key not in golden:
             return ""
-        return f", JAX f32 {float(golden[f'jax_f32_err_{name}']):.3e}"
+        return f", JAX f32 {float(golden[key]):.3e}"
 
-    print(f"[{label}] {what} vs JAX f64 golden at {len(idx)} wavelengths "
-          "(radiance max rel per element, wf_* rel to their max): "
+    print(f"[{label}] {what} vs reference at {len(idx)} wavelengths "
+          "(radiance and fluxes max rel per element, polarized Q, U rel to "
+          "their max, wf_* rel to their max): "
           + ", ".join(f"{k} {v:.3e} (<= {tols[k]:g}{note(k)})"
                       for k, v in errs.items()), flush=True)
     for k, v in errs.items():
-        check(v <= tols[k], f"{what}: {k} vs golden")
+        check(v <= tols[k], f"{what}: {k} vs reference")
 
 
 def timed_calls(engine, atmo, reps):
@@ -400,19 +429,56 @@ def timed_calls(engine, atmo, reps):
     return times
 
 
+def reset_launches():
+    from sasktran2_tpu_torch.ops import jacobi_cuda, lanes, thomas_cuda
+
+    thomas_cuda.thomas_solve.launches = 0
+    thomas_cuda.thomas_solve.launches_by_k = {}
+    jacobi_cuda.jacobi_eigh.launches = 0
+    jacobi_cuda.jacobi_eigh.launches_by_n = {}
+    lanes.TORCH_OP_THOMAS_CALLS_BY_K.clear()
+
+
+def read_launches():
+    """The kernels' launch counts, in all and per instance, and the
+    block-Thomas solves that took the torch-op loop (K > 24) per K."""
+    from sasktran2_tpu_torch.ops import jacobi_cuda, lanes, thomas_cuda
+
+    return {
+        "thomas": thomas_cuda.thomas_solve.launches,
+        "jacobi": jacobi_cuda.jacobi_eigh.launches,
+        "thomas_by_k": dict(thomas_cuda.thomas_solve.launches_by_k),
+        "jacobi_by_n": dict(jacobi_cuda.jacobi_eigh.launches_by_n),
+        "torch_op_thomas_by_k": dict(lanes.TORCH_OP_THOMAS_CALLS_BY_K),
+    }
+
+
+def engine_outputs(out):
+    return {k: out[k].to_numpy() for k in out.keys()
+            if k == "radiance" or k.startswith("wf_") or k.endswith("_flux")}
+
+
 def engine_case(sk, build, golden_path, wl, reps, what, label,
                 kernels_expected):
     """One engine case of ``sasktran2_tpu_torch.scenarios`` end to end on
     the card: the cold call in float32 with Jacobians through an engine
     built with no device (so on ``cuda``), with the launches of both
-    kernels counted from zero and the peak device memory; finite outputs,
-    radiance > 0, and the golden checks (f32 radiance per element within
-    2e-3, each ``wf_*`` within 5e-2 of its largest magnitude; the same case
-    in float64 at the 8 golden wavelengths within 1e-8); then the median
-    of ``reps`` warm calls with and without Jacobians, as wavelengths/s
-    and wavelength-lines-of-sight/s. Returns the launch counts."""
+    kernels counted from zero (in all and per instance: Thomas block size
+    K, Jacobi order n) and the peak device memory; finite outputs, radiance
+    (I) > 0, and the checks against the reference at the 8 golden
+    wavelengths: f32 radiance and fluxes per element within 2e-3 (the
+    polarized Q and U relative to their largest magnitude), each ``wf_*``
+    within 5e-2 of its largest magnitude. The reference is the JAX float64
+    golden file ``golden_path``, against which the same case in float64
+    on the card must also agree within 1e-8; where the JAX package cannot
+    compile the case (``golden_path`` None) it is the port's own float64
+    run on the card. ``kernels_expected`` maps each kernel (and
+    ``torch_op_thomas``, the K > 24 block solves) to the instances (K or
+    n) the path must launch. Then the median of ``reps``
+    warm calls with and without Jacobians, as wavelengths/s and
+    wavelength-lines-of-sight/s, and the Jacobian rows' share. Returns the
+    launch counts."""
     import torch
-    from sasktran2_tpu_torch.ops import jacobi_cuda, thomas_cuda
     from sasktran2_tpu_torch.scenarios import GOLDEN_INDICES
 
     W = len(wl)
@@ -420,63 +486,319 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     engine = sk.Engine(config, geometry, viewing)  # no device: the card
     check(engine._device.type == "cuda", "the engine did not default to cuda")
     nlos = len(viewing.observer_rays)
+    ns = config.num_stokes
     print(f"[{label}] {what}: engine device {engine._device}; ray tracer: "
           f"{engine.ray_tracer}", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    thomas_cuda.thomas_solve.launches = 0
-    jacobi_cuda.jacobi_eigh.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = engine.calculate_radiance(atmo)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {
-        "thomas": thomas_cuda.thomas_solve.launches,
-        "jacobi": jacobi_cuda.jacobi_eigh.launches,
-    }
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{label}] {what} W={W} f32 with Jacobians: first call "
           f"{first_s:.2f} s, kernel launches {launches}, peak device memory "
           f"{peak_gb:.2f} GB", flush=True)
-    if kernels_expected:
-        check(launches["thomas"] > 0 and launches["jacobi"] > 0,
-              f"{what}: a kernel of the path was not launched")
+    for name, sizes in kernels_expected.items():
+        by = launches[{"thomas": "thomas_by_k", "jacobi": "jacobi_by_n",
+                       "torch_op_thomas": "torch_op_thomas_by_k"}[name]]
+        for size in sizes:
+            check(by.get(size, 0) > 0, f"{what}: the {name} kernel at "
+                  f"{size} was not launched")
     check_no_jax(label)
     rad = out["radiance"].to_numpy()
-    wf_names = [k for k in out.keys() if k.startswith("wf_")]
-    check(rad.shape == (W, nlos, 1), f"{what}: radiance shape {rad.shape}")
+    names = [k for k in out.keys() if k.startswith("wf_")
+             or k.endswith("_flux")]
+    check(rad.shape == (W, nlos, ns), f"{what}: radiance shape {rad.shape}")
     finite = np.isfinite(rad).all() and all(
-        np.isfinite(out[k].to_numpy()).all() for k in wf_names)
-    print(f"[{label}] {what}: radiance and {wf_names} finite: "
-          f"{bool(finite)}; radiance > 0: {bool((rad > 0).all())}",
+        np.isfinite(out[k].to_numpy()).all() for k in names)
+    positive = bool((rad[..., 0] > 0).all())
+    print(f"[{label}] {what}: radiance and {len(names)} other variables "
+          f"finite: {bool(finite)}; radiance (I) > 0: {positive}",
           flush=True)
-    check(finite and (rad > 0).all(), f"{what}: non-finite or non-positive "
-          "output")
-    golden = np.load(golden_path)
-    check(np.allclose(golden["wavelengths_nm"], wl[GOLDEN_INDICES]),
-          f"{what}: golden file is for another wavelength grid")
-    compare_golden(out, golden, GOLDEN_INDICES, 2e-3, 5e-2,
-                   f"{what} f32 W={W}", label, f32=True)
-    config64, geometry64, viewing64, atmo64 = build(
-        sk, "float64", wl[GOLDEN_INDICES])
+    check(finite and positive, f"{what}: non-finite or non-positive output")
+    idx = GOLDEN_INDICES
+    config64, geometry64, viewing64, atmo64 = build(sk, "float64", wl[idx])
     out64 = sk.Engine(config64, geometry64, viewing64, device="cuda:0")\
         .calculate_radiance(atmo64)
-    compare_golden(out64, golden, np.arange(len(GOLDEN_INDICES)), 1e-8, 1e-8,
-                   f"{what} f64 W={len(GOLDEN_INDICES)}", label)
+    if golden_path is not None:
+        golden = dict(np.load(golden_path))
+        check(np.allclose(golden["wavelengths_nm"], wl[idx]),
+              f"{what}: golden file is for another wavelength grid")
+        compare_golden(out, golden, idx, 2e-3, 5e-2, f"{what} f32 W={W}",
+                       label, f32=True)
+        compare_golden(out64, golden, np.arange(len(idx)), 1e-8, 1e-8,
+                       f"{what} f64 W={len(idx)}", label)
+    else:
+        compare_golden(out, engine_outputs(out64), idx, 2e-3, 5e-2,
+                       f"{what} f32 W={W} vs the port's f64 on the card",
+                       label)
 
     times = timed_calls(engine, atmo, reps)
-    med = statistics.median(times)
+    med_jac = statistics.median(times)
     print(f"[{label}] {what} warm calls (s): {[round(t, 4) for t in times]}; "
-          f"median {med:.4f} s = {W / med:.1f} wavelengths/s = "
-          f"{W * nlos / med:.1f} wavelength-LOS/s (f32, full Jacobians)",
+          f"median {med_jac:.4f} s = {W / med_jac:.1f} wavelengths/s = "
+          f"{W * nlos / med_jac:.1f} wavelength-LOS/s (f32, full Jacobians)",
           flush=True)
     atmo.calculate_derivatives = False
+    torch.cuda.reset_peak_memory_stats()
     times = timed_calls(engine, atmo, reps)
     med = statistics.median(times)
+    nout = nlos * ns + sum(k.endswith("_flux") for k in out.keys()
+                           if not k.startswith("wf_")) * len(
+        getattr(viewing, "flux_observers", []))
     print(f"[{label}] {what} radiance only (s): "
           f"{[round(t, 4) for t in times]}; median {med:.4f} s = "
           f"{W / med:.1f} wavelengths/s = {W * nlos / med:.1f} "
-          "wavelength-LOS/s", flush=True)
+          f"wavelength-LOS/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; Jacobian rows: "
+          f"{nout} outputs, ({med_jac:.4f} - {med:.4f}) / {nout} = "
+          f"{(med_jac - med) / nout:.4f} s per row, "
+          f"{(med_jac - med) / med_jac:.3f} of the call", flush=True)
     return launches
+
+
+class Capture:
+    """Keep a detached copy of the arguments of every call of a function
+    that a module holds by name (``module.name``) while the block runs,
+    calling it as before."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.args = module, name, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapper(*args, **kw):
+            self.args.append([a.detach().clone() if hasattr(a, "detach")
+                              else a for a in args])
+            return fn(*args, **kw)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def capture_engine_inputs(sk, build, wl):
+    """The eigensolve and block-Thomas inputs of each mode of a polarized
+    engine case's radiance-only f32 call on the card: two lists, one entry
+    per mode, of [P, n, n, W] matrices and (lo, di, up, rhs) systems."""
+    from sasktran2_tpu_torch.rt import disco_vec_minor
+
+    config, geometry, viewing, atmo = build(sk, "float32", wl)
+    atmo.calculate_derivatives = False
+    engine = sk.Engine(config, geometry, viewing)
+    with Capture(disco_vec_minor, "lane_jacobi_eigh_scan") as eig, \
+            Capture(disco_vec_minor, "lane_block_thomas_solve") as bvp:
+        engine.calculate_radiance(atmo)
+    return [c[0] for c in eig.args], [c[:4] for c in bvp.args]
+
+
+def eigen_residual(a, w, v):
+    """max |A V - V diag(w)| relative to max |A|, and max |V^T V - I|, in
+    float64, for [P, n, n, W] matrices."""
+    import torch
+
+    a, w, v = (t.double() for t in (a, w, v))
+    av = torch.einsum("pijw,pjaw->piaw", a, v)
+    res = float((av - w[:, None] * v).abs().max() / a.abs().max())
+    n = a.shape[1]
+    vtv = torch.einsum("pjaw,pjbw->pabw", v, v)
+    eye = torch.eye(n, dtype=vtv.dtype, device=vtv.device)[None, :, :, None]
+    return res, float((vtv - eye).abs().max())
+
+
+def phase_jacobi_instance(a32, label, what):
+    """K3 at an engine's own matrices ``a32`` [P, n, n, W] (f32): the
+    kernel against its plain twin (eigenvalues, sorted, against a float64
+    truth of 12 sweeps: error <= max(4 x the plain twin's, 1e-5), relative
+    to max |A|), the eigen-residual of both at the engine's 7 sweeps and of
+    the kernel at 10, time, bound and ``torch.linalg.eigh``'s time."""
+    import torch
+    from sasktran2_tpu_torch.ops import jacobi_cuda
+
+    P, n, _, W = a32.shape
+    scale = float(a32.abs().max())
+    truth, _ = jacobi_cuda.jacobi_eigh_plain(a32.double(), 12)
+    truth = truth.sort(dim=1).values
+    w, v = jacobi_cuda.jacobi_eigh(a32, 7)
+    wp, vp = jacobi_cuda.jacobi_eigh_plain(a32, 7)
+    err_k = float((w.double().sort(dim=1).values - truth).abs().max()) / scale
+    err_p = float((wp.double().sort(dim=1).values - truth).abs().max()) / scale
+    res_k, orth_k = eigen_residual(a32, w, v)
+    res_p, _ = eigen_residual(a32, wp, vp)
+    w10, v10 = jacobi_cuda.jacobi_eigh(a32, 10)
+    res_10, _ = eigen_residual(a32, w10, v10)
+    torch.cuda.synchronize()
+    print(f"[{label}] K3 jacobi at {what}'s own matrices [{P}, {n}, {n}, "
+          f"{W}] f32, 7 sweeps: eigenvalues vs f64 truth rel {err_k:.3e} "
+          f"(<= max(4 x plain {err_p:.3e}, 1e-5)); eigen-residual "
+          f"|AV-VL|/max|A| kernel {res_k:.3e}, plain {res_p:.3e}, kernel at "
+          f"10 sweeps {res_10:.3e}; |V^T V - I| {orth_k:.3e}", flush=True)
+    check(err_k <= max(4.0 * err_p, 1e-5), f"jacobi instance n={n}")
+    rec = {"max_abs_err": float((w - wp).abs().max())}
+    rec["ms"] = cuda_ms(lambda: jacobi_cuda.jacobi_eigh(a32, 7), 10)
+    rec["plain_ms"] = cuda_ms(lambda: jacobi_cuda.jacobi_eigh_plain(a32, 7), 2)
+    rec["bound_ms"], rec["bound_by"] = jacobi_bound(P, n, W, 7, 4)
+    batch = a32.permute(0, 3, 1, 2).reshape(P * W, n, n).contiguous()
+    rec["library_ms"] = library_eigh_ms(batch, label, magma=False)
+    return rec
+
+
+def phase_thomas_instance(system32, label, what):
+    """K1/K2 at an engine's own block-tridiagonal system (f32): the kernel
+    and its plain twin against a float64 solve of the same system, error
+    relative to max |x| <= max(4 x the plain twin's, 1e-5); time and
+    bound."""
+    import torch
+    from sasktran2_tpu_torch.ops import thomas_cuda
+
+    P, K, _, W = system32[1].shape
+    truth = thomas_cuda.thomas_solve_plain(*[t.double() for t in system32])
+    xk = thomas_cuda.thomas_solve(*system32).double()
+    xp = thomas_cuda.thomas_solve_plain(*system32).double()
+    scale = float(truth.abs().max())
+    err_k = float((xk - truth).abs().max()) / scale
+    err_p = float((xp - truth).abs().max()) / scale
+    torch.cuda.synchronize()
+    print(f"[{label}] K1/K2 thomas at {what}'s own system [{P}, {K}, {K}, "
+          f"{W}] f32: vs f64 solve rel {err_k:.3e} (<= max(4 x plain "
+          f"{err_p:.3e}, 1e-5))", flush=True)
+    check(err_k <= max(4.0 * err_p, 1e-5), f"thomas instance K={K}")
+    rec = {"max_abs_err": float((xk - xp).abs().max())}
+    rec["ms"] = cuda_ms(lambda: thomas_cuda.thomas_solve(*system32), 20)
+    rec["plain_ms"] = cuda_ms(
+        lambda: thomas_cuda.thomas_solve_plain(*system32), 3)
+    rec["bound_ms"], rec["bound_by"] = thomas_bound(P, K, W, 4)
+    rec["library_ms"] = None
+    return rec
+
+
+def phase_pol16_solver(label):
+    """Phase 11 (a): the port's ``solve_nstream_vector`` at 16 streams on
+    the card against the JAX package's float64 radiance on the same layer
+    inputs (``golden_pol16_solver.npz``: P = 100, four rays, the 8 golden
+    wavelengths), in float64 within 1e-8 and in float32 within 2e-3 (I
+    per element, Q and U relative to their largest magnitude)."""
+    import torch
+    from sasktran2_tpu_torch import scenarios
+    from sasktran2_tpu_torch.rt import disco_vec_minor
+
+    golden = dict(np.load(scenarios.GOLDEN_POL16_SOLVER_PATH))
+    user_mu = golden["user_mu"]
+    tables = disco_vec_minor.build_vector_minor_tables(
+        16, 16, 0.6, user_mu, num_azimuth=scenarios.POL16_SOLVER_NUM_AZIMUTH)
+    user_up = np.ones(len(user_mu), dtype=bool)
+    user_azi = np.full(len(user_mu), scenarios.POL16_SOLVER_AZIMUTH)
+    for dtype, tol in ((torch.float64, 1e-8), (torch.float32, 2e-3)):
+        x = {k[6:]: torch.tensor(v, dtype=dtype, device="cuda")
+             for k, v in golden.items() if k.startswith("input_")}
+        with torch.no_grad():
+            rad = disco_vec_minor.solve_nstream_vector(
+                x["dtau"], x["omega"], x["a1"], x["a2"], x["a3"], x["b1"],
+                x["albedo"], tables, user_up, user_azi, f0=x["f0"],
+                num_azimuth=scenarios.POL16_SOLVER_NUM_AZIMUTH)
+        err = scenarios.golden_error(
+            "radiance", rad.double().cpu().numpy(), golden["radiance"],
+            stokes_axis=1)
+        note = (f", JAX f32 {float(golden['jax_f32_err_radiance']):.3e}"
+                if dtype == torch.float32 else "")
+        print(f"[{label}] pol16 solver {str(dtype)[6:]} on the card vs JAX "
+              f"f64 (P=100, U=4, W=8): radiance {err:.3e} (<= {tol:g}"
+              f"{note})", flush=True)
+        check(err <= tol, f"pol16 solver {dtype}: radiance")
+
+
+def phase_dolp_16_vs_8(label):
+    """Phase 11 (c): the conservative Rayleigh slab of
+    ``tests/test_nstream_vec.py:250-294`` on the card in float32 at W =
+    1024 identical lanes: I, Q, U and DOLP at 16 streams against 8 within
+    that test's tolerances (rtol 5e-3, atol 1e-5 |I|; DOLP rtol 1e-3)."""
+    import torch
+    from sasktran2_tpu_torch.rt import disco_vec_minor
+
+    L, P, W = 3, 6, 1024
+    greeks = np.zeros((4, L, P, W))
+    greeks[0, 0], greeks[0, 2], greeks[1, 2] = 1.0, 0.5, 3.0
+    greeks[3, 2] = np.sqrt(6.0) / 2.0
+
+    def run(nstr):
+        tab = disco_vec_minor.build_vector_minor_tables(
+            nstr, L, 0.9999, np.array([0.7575]), num_azimuth=3)
+        f = torch.float32
+        r = disco_vec_minor.solve_nstream_vector(
+            torch.full((P, W), 0.25 / P, dtype=f, device="cuda"),
+            torch.ones((P, W), dtype=f, device="cuda"),
+            *torch.tensor(greeks, dtype=f, device="cuda"),
+            torch.zeros(W, dtype=f, device="cuda"), tab, np.array([True]),
+            np.array([np.pi]), num_azimuth=3)
+        return r[0].double().cpu().numpy()                 # [3, W]
+
+    iqu16, iqu8 = run(16), run(8)
+    spread = float(np.max(np.abs(iqu16 - iqu16[:, :1])))
+    rel = float(np.max(np.abs(iqu16 - iqu8)
+                       / (5e-3 * np.abs(iqu8) + 1e-5 * np.abs(iqu8[0]))))
+    dolp16 = np.hypot(iqu16[1], iqu16[2]) / iqu16[0]
+    dolp8 = np.hypot(iqu8[1], iqu8[2]) / iqu8[0]
+    drel = float(np.max(np.abs(dolp16 - dolp8) / np.abs(dolp8)))
+    print(f"[{label}] Rayleigh slab f32 W={W}: I, Q, U at 16 streams "
+          f"{iqu16[:, 0]} vs 8 {iqu8[:, 0]}: |diff| / (5e-3|x| + 1e-5|I|) "
+          f"{rel:.3f} (<= 1); DOLP {dolp16[0]:.5f} vs {dolp8[0]:.5f}, rel "
+          f"{drel:.3e} (<= 1e-3); spread over lanes {spread:.1e}",
+          flush=True)
+    check(rel <= 1.0 and drel <= 1e-3 and 0.1 < dolp16[0] < 0.7,
+          "DOLP 16 vs 8 streams")
+
+
+def phases_2_to_7(sk, dev, wl, label):
+    """Phases 2-7: both kernels against their plain twins, the 16-stream
+    ground-viewing case with the kernels' times, the 16-stream limb scan
+    and the two-stream case. Returns the kernel records and the launch
+    counts of the ground and limb calls."""
+    from sasktran2_tpu_torch.scenarios import (
+        GOLDEN_2STR_PATH,
+        GOLDEN_LIMB_PATH,
+        GOLDEN_PATH,
+        limb_case,
+        smoke_case,
+        twostream_case,
+    )
+
+    thomas_rec = phase_thomas(dev, label)
+    jacobi_rec = phase_jacobi(dev, label)
+
+    # phases 4, 5: the ground-viewing engine end to end, and times
+    launches = engine_case(
+        sk, smoke_case, GOLDEN_PATH, wl, 5, "engine nstr=16 P=100 nlos=4",
+        label, kernels_expected={"thomas": [16], "jacobi": [8]},
+    )
+
+    for name, rec in (("thomas", thomas_rec), ("jacobi", jacobi_rec)):
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.3f} ms")
+        print(f"[{label}] {name} kernel {rec['ms']:.3f} ms per launch, "
+              f"{launches[name]} launches per call; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share of "
+              f"bound {rec['bound_ms'] / rec['ms']:.3f}; plain "
+              f"{rec['plain_ms']:.3f} ms; library call {lib}; at the "
+              f"engine's shape, f32", flush=True)
+
+    # phase 6: the 16-stream limb scan
+    limb_launches = engine_case(
+        sk, limb_case, GOLDEN_LIMB_PATH, wl, 3, "limb nstr=16 P=100 nlos=20",
+        label, kernels_expected={"thomas": [16], "jacobi": [8]},
+    )
+    print(f"[{label}] limb scan kernel launches per call with Jacobians: "
+          f"{limb_launches}", flush=True)
+
+    # phase 7: the two-stream solver
+    engine_case(sk, twostream_case, GOLDEN_2STR_PATH, wl, 3,
+                "two-stream P=100 nlos=1", label, kernels_expected={})
+
+    return thomas_rec, jacobi_rec, launches, limb_launches
 
 
 def main():
@@ -489,15 +811,16 @@ def main():
     sys.path.insert(0, HERE)
     try:
         import sasktran2_tpu_torch as sk
-        from sasktran2_tpu_torch.ops import _build
+        from sasktran2_tpu_torch.ops import _build, jacobi_cuda, thomas_cuda
         from sasktran2_tpu_torch.scenarios import (
-            GOLDEN_2STR_PATH,
-            GOLDEN_LIMB_PATH,
-            GOLDEN_PATH,
-            limb_case,
-            smoke_case,
+            GOLDEN_FLUX16_PATH,
+            GOLDEN_POL4_PATH,
+            LIMBPOL_NUM_LOS,
+            flux16_case,
+            limbpol16_case,
+            pol4_case,
+            pol16_case,
             smoke_wavelengths,
-            twostream_case,
         )
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -524,51 +847,102 @@ def main():
         for ln in ptxas_summary(path[:-3] + ".log"):
             print(f"[{label}]     ptxas {ln}")
 
-    # --- phases 2, 3: kernels against their plain twins ----------------------
-    thomas_rec = phase_thomas(dev, label)
-    jacobi_rec = phase_jacobi(dev, label)
-
-    # --- phases 4, 5: the ground-viewing engine end to end, and times ---------
     wl = smoke_wavelengths()
-    launches = engine_case(
-        sk, smoke_case, GOLDEN_PATH, wl, 5, "engine nstr=16 P=100 nlos=4",
-        label, kernels_expected=True,
+    thomas_rec, jacobi_rec, launches, limb_launches = phases_2_to_7(
+        sk, dev, wl, label)
+    # --- phase 8: the kernel instances of the polarized path ----------------
+    # each at a polarized engine's own inputs (a radiance-only call)
+    eig4, bvp4 = capture_engine_inputs(sk, pol4_case, wl)
+    eig16, bvp16 = capture_engine_inputs(sk, pol16_case, wl)
+    jacobi24_rec = phase_jacobi_instance(eig16[0], label, "pol16")
+    for m, a in enumerate(eig16[1:], 1):
+        res, _ = eigen_residual(a, *jacobi_cuda.jacobi_eigh(a, 7))
+        print(f"[{label}] K3 jacobi at pol16 mode {m}'s matrices: "
+              f"eigen-residual {res:.3e}", flush=True)
+    jacobi6_rec = phase_jacobi_instance(eig4[0], label, "pol4")
+    thomas12_rec = phase_thomas_instance(bvp4[0], label, "pol4")
+    k48 = bvp16[0]
+    k48_ms = cuda_ms(lambda: thomas_cuda.thomas_solve_plain(*k48), 3)
+    print(f"[{label}] pol16 BVP {tuple(k48[1].shape)} f32 through the "
+          f"torch-op loop (no kernel at K > 24, as the reference's scan): "
+          f"{k48_ms:.3f} ms per solve", flush=True)
+    del eig4, bvp4, eig16, bvp16
+
+    # --- phase 9: flux observers ----------------------------------------------
+    flux_launches = engine_case(
+        sk, flux16_case, GOLDEN_FLUX16_PATH, wl, 3,
+        "flux nstr=16 P=100 nlos=1 nobs=6 (4 types)", label,
+        kernels_expected={"thomas": [16], "jacobi": [8]},
     )
 
-    for name, rec in (("thomas", thomas_rec), ("jacobi", jacobi_rec)):
-        lib = ("none" if rec["library_ms"] is None
-               else f"{rec['library_ms']:.3f} ms")
-        print(f"[{label}] {name} kernel {rec['ms']:.3f} ms per launch, "
-              f"{launches[name]} launches per call; bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share of "
-              f"bound {rec['bound_ms'] / rec['ms']:.3f}; plain "
-              f"{rec['plain_ms']:.3f} ms; library call {lib}; at the "
-              f"engine's shape, f32", flush=True)
-
-    # --- phase 6: the 16-stream limb scan --------------------------------------
-    limb_launches = engine_case(
-        sk, limb_case, GOLDEN_LIMB_PATH, wl, 3, "limb nstr=16 P=100 nlos=20",
-        label, kernels_expected=True,
+    # --- phase 10: polarized, 4 streams -----------------------------------------
+    pol4_launches = engine_case(
+        sk, pol4_case, GOLDEN_POL4_PATH, wl, 3,
+        "pol4 nstr=4 P=100 nlos=4 (I, Q, U)", label,
+        kernels_expected={"thomas": [12], "jacobi": [6]},
     )
-    print(f"[{label}] limb scan kernel launches per call with Jacobians: "
-          f"{limb_launches}", flush=True)
 
-    # --- phase 7: the two-stream solver ----------------------------------------
-    engine_case(sk, twostream_case, GOLDEN_2STR_PATH, wl, 3,
-                "two-stream P=100 nlos=1", label, kernels_expected=False)
+    # --- phase 11: polarized, 16 streams ---------------------------------------
+    phase_pol16_solver(label)
+    # one warm call each for the two 16-stream polarized cases: a call
+    # with Jacobians takes 60-80 s on the H100 (PERF.md), and the script
+    # must end within 1,200 s
+    pol16_launches = engine_case(
+        sk, pol16_case, None, wl, 1,
+        "pol16 nstr=16 P=100 nlos=4 (I, Q, U)", label,
+        kernels_expected={"jacobi": [24], "torch_op_thomas": [48]},
+    )
+    phase_dolp_16_vs_8(label)
+
+    # --- phase 12: polarized limb scan, 16 streams ------------------------------
+    limbpol_launches = engine_case(
+        sk, limbpol16_case, None, wl, 1,
+        f"limbpol16 nstr=16 P=100 nlos={LIMBPOL_NUM_LOS} (I, Q, U)", label,
+        kernels_expected={"jacobi": [24], "torch_op_thomas": [48]},
+    )
 
     check_no_jax(label)
+    by_path = {
+        "ground16": launches, "limb16": limb_launches, "flux16": flux_launches,
+        "pol4": pol4_launches, "pol16": pol16_launches,
+        "limbpol16": limbpol_launches,
+    }
+
+    def instance(kernel, size, main):
+        key = "thomas_by_k" if kernel == "thomas" else "jacobi_by_n"
+        per_path = {k: v[key].get(size, 0) for k, v in by_path.items()}
+        return {"launches": per_path[main],
+                "launches_by_path": {k: v for k, v in per_path.items() if v}}
+
+    thomas = {"route": "cuda", "source": "sasktran2_tpu_torch/csrc/thomas.cu",
+              "replaces": "sasktran2_tpu/ops/pallas_thomas.py:147"}
+    jacobi = {"route": "cuda", "source": "sasktran2_tpu_torch/csrc/jacobi.cu",
+              "replaces": "sasktran2_tpu/ops/pallas_jacobi.py:130"}
     kernels = [
-        {"name": "thomas_block_tridiag_solve", "route": "cuda",
-         "source": "sasktran2_tpu_torch/csrc/thomas.cu",
-         "replaces": "sasktran2_tpu/ops/pallas_thomas.py:147",
-         "launches": launches["thomas"], **thomas_rec},
-        {"name": "jacobi_eigh", "route": "cuda",
-         "source": "sasktran2_tpu_torch/csrc/jacobi.cu",
-         "replaces": "sasktran2_tpu/ops/pallas_jacobi.py:130",
-         "launches": launches["jacobi"], **jacobi_rec},
+        {"name": "thomas_block_tridiag_solve", **thomas,
+         **instance("thomas", 16, "ground16"), **thomas_rec},
+        {"name": "thomas_block_tridiag_solve K=12 (pol4)", **thomas,
+         **instance("thomas", 12, "pol4"), **thomas12_rec},
+        {"name": "jacobi_eigh", **jacobi,
+         **instance("jacobi", 8, "ground16"), **jacobi_rec},
+        {"name": "jacobi_eigh n=6 (pol4)", **jacobi,
+         **instance("jacobi", 6, "pol4"), **jacobi6_rec},
+        {"name": "jacobi_eigh n=24 (pol16)", **jacobi,
+         **instance("jacobi", 24, "pol16"), **jacobi24_rec},
     ]
-    print(json.dumps({"kernels": kernels}))
+    torch_op_paths = [
+        {"name": "thomas_block_tridiag_solve K=48 (pol16)",
+         "route": "torch ops, as the reference's scan; no Pallas kernel at "
+                  "K > 24",
+         "source": "sasktran2_tpu_torch/ops/thomas_cuda.py "
+                   "(thomas_solve_plain)",
+         "calls": pol16_launches["torch_op_thomas_by_k"][48],
+         "calls_by_path": {
+             "pol16": pol16_launches["torch_op_thomas_by_k"][48],
+             "limbpol16": limbpol_launches["torch_op_thomas_by_k"][48]},
+         "ms": k48_ms},
+    ]
+    print(json.dumps({"kernels": kernels, "torch_op_paths": torch_op_paths}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -13,18 +13,22 @@ Thomas and Jacobi work in the CUDA kernels of ``ops/`` on the GPU.
 Covered: 1D geometry (plane-parallel, pseudo-spherical, spherical) with
 ground-viewing (``GroundViewingSolar``, ``SolarAnglesObserverLocation``)
 and limb (``TangentAltitudeSolar``) rays; DO multiple scatter (the
-two-stream solver at nstr = 2 for ground-viewing rays, the N-stream solver
-otherwise, and for limb rays the DO source evaluated along the traced rays
-on a grid of ``num_do_sza`` solar zenith angles); DO, exact or table single
-scatter; Standard and volume-emission-rate emission; occultation; the
-line-of-sight optical depth; a Lambertian surface; scalar radiance.
-Everything else raises ``NotImplementedError`` naming the ROADMAP slice
-that will bring it.
+two-stream solver at nstr = 2 for scalar ground-viewing rays, the N-stream
+solver otherwise, and for limb rays the DO source evaluated along the
+traced rays on a grid of ``num_do_sza`` solar zenith angles); DO, exact or
+table single scatter; Standard and volume-emission-rate emission;
+occultation; the line-of-sight optical depth; a Lambertian surface; scalar
+radiance with flux observers (upwelling, downwelling, actinic and
+divergence fluxes from the m = 0 level fields); and polarized (I, Q, U)
+radiance, ground-viewing and limb, through the wavelength-minor vector
+solver, with the Stokes-basis rotations. Everything else raises
+``NotImplementedError`` naming the ROADMAP slice that will bring it.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -33,18 +37,22 @@ from .atmosphere import Atmosphere
 from .config import (
     Config,
     EmissionSource,
+    FluxType,
     GeometryType,
     MultipleScatterSource,
     OccultationSource,
     SingleScatterSource,
     SpectralGridMode,
+    StokesBasis,
 )
 from .dataset import DataArray, Dataset
 from .device import resolve_device, resolve_dtype
 from .geometry import Geometry1D
 from .params import core_from_reference
 from .rt import disco, do_source, singlescatter
-from .rt.disco_nstream import solve_nstream
+from .rt.disco_nstream import solve_nstream, solve_nstream_m0_levels
+from .rt.disco_vec import NS
+from .rt.disco_vec_minor import build_vector_minor_tables, solve_nstream_vector
 from .rt.raytrace import apply_solar_table, trace_spherical
 from .rt.twostream import solve_twostream
 from .util.interpolation import linear_interpolating_matrix
@@ -85,9 +93,10 @@ class Engine:
         if len(self._rays) == 0:
             msg = "viewing_geometry contains no rays"
             raise ValueError(msg)
-        self._check_slice(
-            list(getattr(viewing_geometry, "flux_observers", []))
+        self._flux_observers = list(
+            getattr(viewing_geometry, "flux_observers", [])
         )
+        self._check_slice()
         self._dtype = resolve_dtype(config.dtype, self._device)
 
         self._traced = trace_spherical(
@@ -118,11 +127,14 @@ class Engine:
         self._needs_ss_exact = ss in (
             SingleScatterSource.Exact, SingleScatterSource.Table,
         )
+        self._polarized = config.num_stokes == 3
         if self._needs_ss_exact:
-            self._phase_tab = singlescatter.phase_tables(
-                self._traced,
-                max(config.num_streams, config.num_singlescatter_moments),
-            )
+            nleg = max(config.num_streams, config.num_singlescatter_moments)
+            self._phase_tab = singlescatter.phase_tables(self._traced, nleg)
+            if self._polarized:
+                self._d02_tab = singlescatter.phase_tables_d02(
+                    self._traced, nleg
+                )
         self._needs_do = ms in (
             MultipleScatterSource.DiscreteOrdinates,
             MultipleScatterSource.TwoStream,
@@ -133,9 +145,13 @@ class Engine:
         self._do_include_ss = ss == SingleScatterSource.DiscreteOrdinates
         self._do_groups = []
         self._limb_groups = []
+        self._flux_groups = []
         if self._needs_do:
             self._build_do_tables()
         self._num_azi_eff = None
+        self._stokes_cs = (
+            self._stokes_basis_rotations() if self._polarized else None
+        )
 
     @property
     def ray_tracer(self) -> str:
@@ -145,9 +161,11 @@ class Engine:
 
         return "native C++" if get_native_lib() is not None else "numpy"
 
-    def _check_slice(self, flux_observers):
-        """Raise for every configuration outside the ported scalar slice;
-        the message names the ROADMAP Queue 1 slice for it."""
+    def _check_slice(self):
+        """Raise for every configuration outside the ported slices; the
+        message names the ROADMAP Queue 1 slice for it. The JAX package
+        sends these to its generic per-wavelength route or to solvers the
+        port does not have yet."""
         cfg = self._config
         if not isinstance(self._geometry, Geometry1D):
             msg = (
@@ -163,9 +181,11 @@ class Engine:
                 "takes sasktran2_tpu_torch.ViewingGeometry)",
                 "ROADMAP, Next: ViewingGeometryContainer",
             )
-        if cfg.num_stokes != 1:
+        if cfg.num_stokes == 3 and self._flux_observers:
             raise _not_ported(
-                "polarized radiance", "ROADMAP Queue 1 slice 8, polarized"
+                "polarized radiance with flux observers (the generic "
+                "per-wavelength route)",
+                "ROADMAP Queue 1 slice 9, generic route",
             )
         if cfg.multiple_scatter_source == MultipleScatterSource.SuccessiveOrders:
             raise _not_ported(
@@ -183,8 +203,6 @@ class Engine:
                 "EngineIntegratedLineShape output mapping",
                 "ROADMAP Queue 1 slice 12, optical compute",
             )
-        if flux_observers:
-            raise _not_ported("flux observers", "ROADMAP Queue 1 slice 7, flux")
         for ray in self._rays:
             if not isinstance(ray, (
                 GroundViewingSolar, SolarAnglesObserverLocation,
@@ -196,12 +214,115 @@ class Engine:
                 )
 
     # ------------------------------------------------------------------
+    def _stokes_basis_rotations(self):
+        """Per-LOS (C, S) = (cos 2a, +-sin 2a) rotating output Stokes
+        (Q, U) from the standard basis (the meridian plane through the
+        propagation direction and local up, the solver's native frame) into
+        ``config.stokes_basis`` (``sasktran2_tpu/engine.py:327-415``).
+
+        solar: reference plane spanned by the look vector and the sun
+        (S = -sin 2a); observer: plane spanned by the look vector and the
+        observer position (S = +sin 2a). The angle is the dihedral angle
+        between the perpendicular projections onto the look vector.
+        """
+        basis = self._config.stokes_basis
+        nlos = len(self._rays)
+        cs = np.ones((nlos, 2))
+        cs[:, 1] = 0.0
+        if basis == StokesBasis.Standard:
+            return cs
+
+        re = self._geometry.earth_radius_m
+        for i, ray in enumerate(self._rays):
+            z = np.array([0.0, 0.0, 1.0])
+            if isinstance(ray, TangentAltitudeSolar):
+                theta0 = np.arccos(np.clip(ray.cos_sza, -1, 1))
+                phi = ray.relative_azimuth
+                look = np.array([1.0, 0.0, 0.0])
+                # sun azimuth measured from the look azimuth
+                s = np.array([
+                    np.sin(theta0) * np.cos(phi),
+                    np.sin(theta0) * np.sin(phi),
+                    np.cos(theta0),
+                ])
+                rt = re + ray.tangent_altitude_m
+                d = np.sqrt(
+                    max((re + ray.observer_altitude_m) ** 2 - rt**2, 0.0)
+                )
+                pos = np.array([d, 0.0, rt])
+            elif isinstance(
+                ray, (GroundViewingSolar, SolarAnglesObserverLocation)
+            ):
+                muv = ray.cos_viewing_zenith
+                theta0 = np.arccos(np.clip(ray.cos_sza, -1, 1))
+                phi = ray.relative_azimuth
+                sv = np.sqrt(max(1.0 - muv * muv, 0.0))
+                look = np.array([sv, 0.0, abs(muv)])
+                s = np.array([
+                    np.sin(theta0) * np.cos(phi),
+                    np.sin(theta0) * np.sin(phi),
+                    np.cos(theta0),
+                ])
+                ground = np.array([0.0, 0.0, re])
+                # observer up the (propagation) look direction from the
+                # ground point at the requested altitude
+                b = 2.0 * ground @ look
+                c = re**2 - (re + ray.observer_altitude_m) ** 2
+                d = 0.5 * (-b + np.sqrt(max(b * b - 4 * c, 0.0)))
+                pos = ground + d * look
+            else:
+                continue
+
+            if basis == StokesBasis.Solar:
+                target = s
+                sign = -1.0
+            else:  # Observer
+                target = pos / np.linalg.norm(pos)
+                sign = 1.0
+            perp_z = z - (z @ look) * look
+            perp_t = target - (target @ look) * look
+            nz = np.linalg.norm(perp_z)
+            nt = np.linalg.norm(perp_t)
+            if nz < 1e-10 or nt < 1e-10:
+                continue  # degenerate: identity
+            cos_a = float(np.clip(perp_z @ perp_t / (nz * nt), -1.0, 1.0))
+            sin_a = np.sqrt(max(1.0 - cos_a * cos_a, 0.0))
+            cs[i, 0] = 2.0 * cos_a * cos_a - 1.0
+            cs[i, 1] = sign * 2.0 * sin_a * cos_a
+        return cs
+
+    def _rotate_stokes(self, arr, stokes_axis):
+        """Rotate (Q, U) of a numpy output array, whose LOS axis sits just
+        before ``stokes_axis``, into the configured basis:
+        Q' = C Q - S U, U' = S Q + C U (``engine.py:417-445``)."""
+        cs = self._stokes_cs
+        if cs is None or (not np.any(cs[:, 1]) and np.all(cs[:, 0] == 1.0)):
+            return arr
+        arr = np.array(arr, copy=True)
+        slq = [slice(None)] * arr.ndim
+        slu = list(slq)
+        slq[stokes_axis] = 1
+        slu[stokes_axis] = 2
+        q = arr[tuple(slq)].copy()
+        u = arr[tuple(slu)].copy()
+        los_axis = (stokes_axis % arr.ndim) - 1
+        bshape = [1] * q.ndim
+        bshape[los_axis] = cs.shape[0]
+        cvec = cs[:, 0].reshape(bshape)
+        svec = cs[:, 1].reshape(bshape)
+        arr[tuple(slq)] = cvec * q - svec * u
+        arr[tuple(slu)] = svec * q + cvec * u
+        return arr
+
+    # ------------------------------------------------------------------
     def _build_do_tables(self):
         """Group the rays by cos_sza and build each group's DO angular
-        tables (``sasktran2_tpu/engine.py:446``): ground-viewing groups are
-        evaluated at the rays' zenith cosines; limb groups get one solve per
-        point of the SZA grid and the ray-source tables of
-        ``rt.do_source``."""
+        tables (``sasktran2_tpu/engine.py:446-630``): ground-viewing groups
+        are evaluated at the rays' zenith cosines; flux observers get one
+        m = 0 solve per cos_sza and an interpolation onto their altitudes;
+        limb groups get one solve per point of the SZA grid and the
+        ray-source tables of ``rt.do_source``. Polarized engines take the
+        vector tables of ``rt.disco_vec_minor``."""
         groups = {}
         limb_groups = {}
         for i, ray in enumerate(self._rays):
@@ -223,16 +344,41 @@ class Engine:
             if self._config.num_forced_azimuth > 0
             else nstr
         )
+        build_tables = (
+            build_vector_minor_tables if self._polarized
+            else disco.build_mode_tables
+        )
         self._do_groups = []
         for mu0, entries in groups.items():
             idx = np.array([e[0] for e in entries])
             user_mu = np.array([e[1] for e in entries])
             user_up = np.array([e[2] for e in entries])
             user_azi = np.array([e[3] for e in entries])
-            tables = disco.build_mode_tables(
+            tables = build_tables(
                 nstr, nstr, mu0, user_mu, num_azimuth=num_azi,
             )
             self._do_groups.append((idx, tables, user_up, user_azi))
+
+        # flux observers (scalar only; _check_slice refuses polarized
+        # ones): the m = 0 level fields of a solve per cos_sza,
+        # interpolated from the TOA-first boundaries onto the observers
+        alts = self._geometry.altitudes()
+        self._flux_groups = []
+        for mu0 in sorted({float(o.cos_sza) for o in self._flux_observers}):
+            obs = [
+                (i, o.observer_altitude_m)
+                for i, o in enumerate(self._flux_observers)
+                if float(o.cos_sza) == mu0
+            ]
+            interp = linear_interpolating_matrix(
+                alts, np.array([e[1] for e in obs]), "extend",
+            )[:, ::-1]  # [nobs, P+1] in TOA-first boundary order
+            tables = disco.build_mode_tables(
+                nstr, nstr, mu0, np.array([0.5]), num_azimuth=1,
+            )
+            self._flux_groups.append(
+                (np.array([e[0] for e in obs]), tables, interp)
+            )
 
         # limb rays: the DO field of each SZA-grid point, evaluated along
         # the traced rays; with num_do_sza > 1 the grid spans the local
@@ -242,13 +388,16 @@ class Engine:
         self._limb_sza_weights = None
         if not limb_groups:
             return
+        ray_tables = (
+            do_source.build_ray_vector_tables if self._polarized
+            else do_source.build_ray_angular_tables
+        )
         self._limb_rows = do_source.build_layer_rows(
-            self._traced,
-            do_source.build_ray_angular_tables(self._traced, nstr, num_azi),
+            self._traced, ray_tables(self._traced, nstr, num_azi),
         )
 
         def limb_tables(mu0):
-            return disco.build_mode_tables(
+            return build_tables(
                 nstr, nstr, mu0, np.array([0.5]), num_azimuth=num_azi,
             )
 
@@ -278,9 +427,9 @@ class Engine:
 
     @functools.cached_property
     def _chapman(self):
-        """Chapman factors [P, P] per DO solar zenith (ground groups and
-        the limb SZA grid): None (the solver's 1/mu0) for plane-parallel
-        geometry, else the spherical shell slant paths
+        """Chapman factors [P, P] per DO solar zenith (ground groups, flux
+        groups and the limb SZA grid): None (the solver's 1/mu0) for
+        plane-parallel geometry, else the spherical shell slant paths
         (``sasktran2_tpu/engine.py:1184-1249``)."""
         out = {}
         geom_type = self._geometry.geometry_type
@@ -289,6 +438,7 @@ class Engine:
         re = self._geometry.earth_radius_m
         all_tables = [tables for _, tables, _, _ in self._do_groups]
         all_tables += [t for _, tl in self._limb_groups for t in tl]
+        all_tables += [tables for _, tables, _ in self._flux_groups]
         for tables in all_tables:
             mu0 = tables.mu0
             if mu0 in out:
@@ -324,7 +474,9 @@ class Engine:
     # ------------------------------------------------------------------
     def _layer_optical(self, extinction, ssa, leg_coeff):
         """Level quantities -> TOA-first layer dtau/omega [W, P] and beta
-        [W, P, L] by trapezoidal averaging (``engine.py:632``).
+        [W, P, L] by trapezoidal averaging (``engine.py:632``). A stack of
+        greek coefficients [G, W, A, L] (the polarized engine's a1, a2, a3,
+        b1) gives a beta of [G, W, P, L].
 
         omega and beta are the extinction- and scattering-weighted means of
         the two levels' values, written as the upper level's value plus the
@@ -370,56 +522,96 @@ class Engine:
     def _effective_num_azimuth(self, core_np):
         """Azimuth modes past the phase expansion's support contribute
         exactly zero, so the mode loop stops there (``engine.py:1295``;
-        a Rayleigh atmosphere at nstr=16 solves 3 modes)."""
+        a Rayleigh atmosphere at nstr=16 solves 3 modes). Polarized
+        engines count the support of every greek."""
         if self._config.num_forced_azimuth > 0:
             return None
-        arr = np.asarray(core_np["leg_coeff"])
-        nz = np.any(arr != 0.0, axis=tuple(range(arr.ndim - 1)))
-        return (int(np.max(np.nonzero(nz)[0])) if nz.any() else 0) + 1
+        lmax = 0
+        for key in ("leg_coeff", "leg_a2", "leg_a3", "leg_b1"):
+            arr = core_np.get(key)
+            if arr is None:
+                continue
+            arr = np.asarray(arr)
+            nz = np.any(arr != 0.0, axis=tuple(range(arr.ndim - 1)))
+            if nz.any():
+                lmax = max(lmax, int(np.max(np.nonzero(nz)[0])))
+        return lmax + 1
+
+    def _layers(self, core):
+        """The solvers' wavelength-minor layer inputs: dtau/omega [P, W]
+        and beta [L, P, W] (scalar) or the greeks [4, L, P, W]
+        (polarized)."""
+        if self._polarized:
+            legs = torch.stack([
+                core[k] for k in ("leg_coeff", "leg_a2", "leg_a3", "leg_b1")
+            ])
+            dtau, omega, beta = self._layer_optical(
+                core["extinction"], core["ssa"], legs
+            )
+            beta_t = beta.permute(0, 3, 2, 1)        # [4, L, P, W]
+        else:
+            dtau, omega, beta = self._layer_optical(
+                core["extinction"], core["ssa"], core["leg_coeff"]
+            )
+            beta_t = beta.permute(2, 1, 0)           # [L, P, W]
+        return dtau.movedim(0, -1), omega.movedim(0, -1), beta_t
+
+    def _do_solve(self, layers, core, tables, user_up, user_azi, **kw):
+        """One DO group's solve: the vector solver for a polarized engine,
+        the two-stream solver for a scalar ground-viewing group at
+        nstr = 2, the N-stream solver otherwise (the limb groups' solves,
+        ``return_internal=True``, need its level fields at every nstr).
+        Radiance [U, W] (scalar) or [U, 3, W] (polarized)."""
+        dtau_t, omega_t, beta_t = layers
+        kw = dict(
+            include_ss=self._do_include_ss,
+            chapman=self._chapman.get(tables.mu0),
+            f0=core["solar_irradiance"],
+            num_azimuth=self._num_azi_eff,
+            **kw,
+        )
+        if self._polarized:
+            return solve_nstream_vector(
+                dtau_t, omega_t, *beta_t, core["albedo"], tables, user_up,
+                user_azi, **kw,
+            )
+        two_stream = self._do_nstr == 2 and not kw.get("return_internal")
+        solver = solve_twostream if two_stream else solve_nstream
+        return solver(
+            dtau_t, omega_t, beta_t, core["albedo"], tables, user_up,
+            user_azi, **kw,
+        )
 
     def _do_groups_batched(self, core):
-        """DO radiance [W, nlos] of the whole wavelength batch: the
-        ground-viewing groups (``engine.py:1416``) and the limb groups
-        (``engine.py:1479-1524``)."""
+        """DO radiance [W, nlos] (scalar) or [W, nlos, 3] (polarized) of
+        the whole wavelength batch: the ground-viewing groups
+        (``engine.py:1325-1365``, ``:1416``) and the limb groups
+        (``engine.py:1367-1413``, ``:1479-1524``)."""
         ext = core["extinction"]
-        alb = core["albedo"]
-        f0 = core["solar_irradiance"]
-        dtau, omega, beta = self._layer_optical(
-            ext, core["ssa"], core["leg_coeff"]
-        )
-        dtau_t = dtau.movedim(0, -1)                # [P, W]
-        omega_t = omega.movedim(0, -1)
-        beta_t = beta.permute(2, 1, 0)              # [L, P, W]
+        layers = self._layers(core)
         W = ext.shape[0]
-        rad = torch.zeros((W, len(self._rays)), dtype=ext.dtype,
+        tail = (NS,) if self._polarized else ()
+        rad = torch.zeros((W, len(self._rays)) + tail, dtype=ext.dtype,
                           device=ext.device)
-        solver = solve_twostream if self._do_nstr == 2 else solve_nstream
         for idx, tables, user_up, user_azi in self._do_groups:
-            r = solver(
-                dtau_t, omega_t, beta_t, alb, tables, user_up, user_azi,
-                include_ss=self._do_include_ss,
-                chapman=self._chapman.get(tables.mu0),
-                f0=f0,
-                num_azimuth=self._num_azi_eff,
-            )                                       # [U, W]
+            r = self._do_solve(layers, core, tables, user_up, user_azi)
             rad = rad.index_add(
-                1, torch.as_tensor(idx, device=ext.device), r.movedim(0, -1)
+                1, torch.as_tensor(idx, device=ext.device), r.movedim(-1, 0)
             )
+        source = (
+            do_source.ms_source_along_rays_vec_minor if self._polarized
+            else do_source.ms_source_along_rays_minor
+        )
         for idx, tables_list in self._limb_groups:
             j_in, j_out = [], []
             for tables in tables_list:
-                _, internal = solve_nstream(
-                    dtau_t, omega_t, beta_t, alb, tables,
-                    np.array([True]), np.array([0.0]),
-                    include_ss=self._do_include_ss,
-                    chapman=self._chapman.get(tables.mu0),
-                    f0=f0,
-                    num_azimuth=self._num_azi_eff,
+                _, internal = self._do_solve(
+                    layers, core, tables, np.array([True]), np.array([0.0]),
                     return_internal=True,
                 )
-                ji, jo = do_source.ms_source_along_rays_minor(
+                ji, jo = source(
                     internal, self._limb_rows, self._do_include_ss
-                )                                   # [R, S, W]
+                )                                   # [R, S(, 3), W]
                 j_in.append(ji.movedim(-1, 0))
                 j_out.append(jo.movedim(-1, 0))
             if len(tables_list) == 1:
@@ -428,28 +620,93 @@ class Engine:
                 wts = torch.as_tensor(
                     self._limb_sza_weights, dtype=ext.dtype, device=ext.device
                 )                                   # [R, S+1, n_sza]
-                S = j_in[0].shape[-1]
-                j_in = torch.einsum(
-                    "wrsn,rsn->wrs", torch.stack(j_in, -1), wts[:, :S]
-                )
+                S = j_in[0].shape[2]
+                eq = "wrscn,rsn->wrsc" if self._polarized else "wrsn,rsn->wrs"
+                j_in = torch.einsum(eq, torch.stack(j_in, -1), wts[:, :S])
                 j_out = torch.einsum(
-                    "wrsn,rsn->wrs", torch.stack(j_out, -1), wts[:, 1:S + 1]
+                    eq, torch.stack(j_out, -1), wts[:, 1:S + 1]
                 )
-            ms_rad = singlescatter.integrate_od_source(
-                ext, j_in, j_out, self._traced
-            )                                       # [W, nlos]
+            if self._polarized:
+                # one line-of-sight integral per Stokes component
+                ms_rad = singlescatter.integrate_od_source(
+                    ext, j_in.permute(3, 0, 1, 2), j_out.permute(3, 0, 1, 2),
+                    self._traced,
+                ).permute(1, 2, 0)                  # [W, nlos, 3]
+            else:
+                ms_rad = singlescatter.integrate_od_source(
+                    ext, j_in, j_out, self._traced
+                )                                   # [W, nlos]
             idx_t = torch.as_tensor(idx, device=ext.device)
             rad = rad.index_add(1, idx_t, ms_rad.index_select(1, idx_t))
         return rad
 
-    def _radiance(self, core):
-        """Radiance [W, nlos] of the whole wavelength batch: the
-        line-of-sight sources (``engine.py:721-745``) plus the DO part."""
+    def _flux_groups_batched(self, core):
+        """Fluxes [W, ntypes, nobs] of the whole wavelength batch from the
+        m = 0 level fields (``engine.py:1527-1615``): upwelling and
+        downwelling (2 pi sum w mu I, plus the direct beam mu0 F0 T down),
+        actinic (2 pi sum w (I+ + I-) plus F0 T) and divergence
+        (k_abs times actinic), each interpolated onto the observers."""
         cfg = self._config
         ext = core["extinction"]
-        rad = torch.zeros((ext.shape[0], len(self._rays)), dtype=ext.dtype,
+        ssa = core["ssa"]
+        f0 = core["solar_irradiance"]
+        dtau_t, omega_t, beta_t = self._layers(core)
+        W = ext.shape[0]
+        nobs = len(self._flux_observers)
+        flux = torch.zeros((W, len(cfg.flux_types), nobs), dtype=ext.dtype,
+                           device=ext.device)
+        two_pi = 2.0 * math.pi
+        for idx, tables, interp in self._flux_groups:
+            lv, t_top, t_ground = solve_nstream_m0_levels(
+                dtau_t, omega_t, beta_t, core["albedo"], tables,
+                include_ss=self._do_include_ss,
+                chapman=self._chapman.get(tables.mu0),
+                f0=f0,
+            )
+            wq = torch.as_tensor(tables.w, dtype=ext.dtype, device=ext.device)
+            wmu = wq * torch.as_tensor(tables.mu, dtype=ext.dtype,
+                                       device=ext.device)
+            # boundary fields TOA-first: layer tops and the ground
+            ip = torch.cat([lv["i_plus_top"], lv["i_plus_bot"][-1:]])
+            im = torch.cat([lv["i_minus_top"], lv["i_minus_bot"][-1:]])
+            t_b = torch.cat([t_top, t_ground[None]])        # [P+1, W]
+            beam = f0[None] * t_b if self._do_include_ss else 0.0 * t_b
+            f_up = two_pi * torch.einsum("bnw,n->bw", ip, wmu)
+            f_dn = two_pi * torch.einsum("bnw,n->bw", im, wmu) + (
+                tables.mu0 * beam
+            )
+            f_act = two_pi * torch.einsum("bnw,n->bw", ip + im, wq) + beam
+            kabs_b = torch.flip(ext * (1.0 - ssa), (-1,)).movedim(0, -1)
+            per_type = {
+                FluxType.Upwelling: f_up,
+                FluxType.Downwelling: f_dn,
+                FluxType.Actinic: f_act,
+                FluxType.Divergence: kabs_b * f_act,
+            }
+            interp_t = torch.as_tensor(
+                np.ascontiguousarray(interp), dtype=ext.dtype,
+                device=ext.device,
+            )
+            vals = torch.stack([
+                torch.einsum("ob,bw->wo", interp_t, per_type[ftype])
+                for ftype in cfg.flux_types
+            ], dim=1)                                       # [W, T, o]
+            flux = flux.index_copy(
+                2, torch.as_tensor(idx, device=ext.device), vals
+            )
+        return flux
+
+    def _radiance(self, core):
+        """Radiance [W, nlos] (scalar) or [W, nlos, 3] (polarized) of the
+        whole wavelength batch: the line-of-sight sources
+        (``engine.py:721-745``, ``:898-940``) plus the DO part. Emission
+        and occultation are unpolarized and add to I."""
+        cfg = self._config
+        ext = core["extinction"]
+        W = ext.shape[0]
+        rad = torch.zeros((W, len(self._rays)), dtype=ext.dtype,
                           device=ext.device)
-        if self._needs_ss_exact:
+        if self._needs_ss_exact and not self._polarized:
             # exact single scatter is solar-driven: it scales with F0
             rad = rad + core["solar_irradiance"][:, None] * (
                 singlescatter.integrate_single_scatter(
@@ -468,9 +725,33 @@ class Engine:
             )
         if cfg.occultation_source == OccultationSource.Standard:
             rad = rad + singlescatter.occultation_radiance(ext, self._traced)
+        if self._polarized:
+            zero = torch.zeros_like(rad)
+            rad = torch.stack([rad, zero, zero], dim=-1)   # [W, nlos, 3]
+            if self._needs_ss_exact:
+                rad = rad + core["solar_irradiance"][:, None, None] * (
+                    singlescatter.integrate_single_scatter_polarized(
+                        ext, core["ssa"], core["leg_coeff"], core["leg_b1"],
+                        core["albedo"], self._traced, self._phase_tab,
+                        self._d02_tab,
+                    )
+                )
         if self._needs_do:
             rad = rad + self._do_groups_batched(core)
         return rad
+
+    def _outputs(self, core):
+        """The outputs of one call as blocks of [W, n] columns: the
+        radiance of each line of sight (and Stokes component, I, Q, U
+        fastest), then the fluxes, type-major, as the JAX engine orders
+        them. The blocks stay apart so that a flux output's Jacobian row
+        does not run backward through the radiance's solves (the gradient
+        of a concatenation sends zeros into every part)."""
+        W = core["extinction"].shape[0]
+        blocks = [self._radiance(core).reshape(W, -1)]
+        if self._flux_groups:
+            blocks.append(self._flux_groups_batched(core).reshape(W, -1))
+        return blocks
 
     # ------------------------------------------------------------------
     def calculate_radiance(self, atmosphere: Atmosphere, mesh=None) -> Dataset:
@@ -478,9 +759,10 @@ class Engine:
         the weighting functions.
 
         The outputs are wavelength-diagonal in the inputs, so for each
-        line of sight one backward pass of the summed radiance yields that
-        output's Jacobian rows at every wavelength at once. Radiance and
-        every gradient block come back to the host in one copy."""
+        output (line of sight, Stokes component or flux) one backward pass
+        of its sum over the wavelengths yields that output's Jacobian rows
+        at every wavelength at once. Outputs and every gradient block come
+        back to the host in one copy."""
         if mesh is not None:
             raise _not_ported("mesh=", "ROADMAP Queue 1 slice 13, multi-GPU")
         if not isinstance(atmosphere, Atmosphere):
@@ -505,6 +787,8 @@ class Engine:
         )
         wrt = []
         if needs_jac:
+            # as in the JAX engine, only the a1 greek (leg_coeff) is mapped
+            # to weighting functions; a2, a3 and b1 are inputs only
             wrt = ["extinction", "ssa", "albedo"]
             if any(
                 m.d_leg_coeff is not None and np.any(m.d_leg_coeff)
@@ -519,15 +803,17 @@ class Engine:
         core = core_from_reference(core_np, self._device, self._dtype)
         for k in wrt:
             core[k].requires_grad_(True)
-        nlos = len(self._rays)
         with torch.set_grad_enabled(bool(wrt)):
-            rad = self._radiance(core)              # [W, nlos]
-        blocks = [rad.detach()]
+            outputs = self._outputs(core)           # [W, n] blocks
+        columns = [o[:, i] for o in outputs for i in range(o.shape[1])]
+        blocks = [torch.cat([o.detach() for o in outputs], dim=1)]
         if wrt:
             inputs = [core[k] for k in wrt]
-            rows = [self._jacobian_row(rad[:, i], inputs, i < nlos - 1)
-                    for i in range(nlos)]
-            # [W, nlos, ...] per input, as the JAX engine lays them out
+            rows = [
+                self._jacobian_row(col, inputs, i < len(columns) - 1)
+                for i, col in enumerate(columns)
+            ]
+            # [W, nout, ...] per input, as the JAX engine lays them out
             blocks += [
                 torch.stack([row[j] for row in rows], dim=1)
                 for j in range(len(wrt))
@@ -541,13 +827,26 @@ class Engine:
         host = [p.reshape(b.shape) for p, b in zip(pieces, blocks)]
         grads = dict(zip(wrt, host[1:]))
 
+        nlos = len(self._rays)
+        ns = self._config.num_stokes
+        nrad = nlos * ns
         out = Dataset()
+        rad = host[0][:, :nrad].reshape(-1, nlos, ns)
         out["radiance"] = DataArray(
-            host[0].reshape(-1, nlos, 1), ("wavelength", "los", "stokes")
+            self._rotate_stokes(rad, 2), ("wavelength", "los", "stokes")
         )
+        ftypes = self._flux_types_out()
+        if ftypes:
+            flux = host[0][:, nrad:].reshape(
+                host[0].shape[0], len(ftypes), len(self._flux_observers)
+            )
+            for ti, ftype in enumerate(ftypes):
+                out[f"{_FLUX_NAMES[ftype]}_flux"] = DataArray(
+                    flux[:, ti], ("wavelength", "flux_location")
+                )
         if atmosphere.wavelengths_nm is not None:
             out.coords["wavelength"] = atmosphere.wavelengths_nm
-        out.coords["stokes"] = ["I"]
+        out.coords["stokes"] = ["I", "Q", "U"][:ns]
         if needs_jac:
             self._assemble_wfs(out, atmosphere, grads, nlos)
         if self._config.output_los_optical_depth:
@@ -556,32 +855,48 @@ class Engine:
             )
         return out
 
+    def _flux_types_out(self):
+        """The flux types in the outputs: the configured ones where the
+        engine has flux groups (flux observers and a DO source), else
+        none."""
+        return self._config.flux_types if self._flux_groups else ()
+
     @staticmethod
-    def _jacobian_row(rad_i, inputs, retain_graph):
-        """Gradients of one line of sight's radiance, summed over the
-        wavelengths, with respect to ``inputs``: each output depends only
-        on its own wavelength's inputs, so this is that output's Jacobian
-        row at every wavelength. An input the radiance does not depend on
-        (the albedo of an occultation-only engine) gets zeros."""
-        if not rad_i.requires_grad:
+    def _jacobian_row(out_i, inputs, retain_graph):
+        """Gradients of one output, summed over the wavelengths, with
+        respect to ``inputs``: each output depends only on its own
+        wavelength's inputs, so this is that output's Jacobian row at every
+        wavelength. An input the output does not depend on (the albedo of
+        an occultation-only engine) gets zeros."""
+        if not out_i.requires_grad:
             return [torch.zeros_like(t) for t in inputs]
         grads = torch.autograd.grad(
-            rad_i.sum(), inputs, retain_graph=retain_graph, allow_unused=True
+            out_i.sum(), inputs, retain_graph=retain_graph, allow_unused=True
         )
         return [torch.zeros_like(t) if g is None else g
                 for g, t in zip(grads, inputs)]
 
     # ------------------------------------------------------------------
     def _assemble_wfs(self, out: Dataset, atmosphere: Atmosphere, grads, nlos):
-        """Map core-space gradients [W, nlos, A(, L)] through the
-        atmosphere's derivative mappings (``engine.py:1869``, scalar
-        radiance, no flux outputs)."""
+        """Map core-space gradients [W, nout, A(, L)] through the
+        atmosphere's derivative mappings (``engine.py:1869``): radiance
+        rows become ``wf_*`` on (wavelength, los, stokes), rotated into the
+        Stokes basis and, in log-radiance space, divided by I; flux rows
+        become ``wf_*_<type>_flux`` on (wavelength, flux_location)."""
+        ns = self._config.num_stokes
+        nrad = nlos * ns
+        ftypes = self._flux_types_out()
+        nobs = len(self._flux_observers)
 
-        def emit(wf, log_space=False):
-            rad_part = wf.reshape((wf.shape[0], nlos, 1) + wf.shape[2:])
+        def emit(name, wf, log_space=False):
+            rad_part = wf[:, :nrad].reshape(
+                (wf.shape[0], nlos, ns) + wf.shape[2:]
+            )
+            rad_part = self._rotate_stokes(rad_part, 2)
             if log_space:
-                # log-radiance space: divide by the radiance
-                intensity = out["radiance"].to_numpy()
+                # log-radiance space: every Stokes component's WF is
+                # divided by the I component of the radiance
+                intensity = out["radiance"].to_numpy()[:, :, 0:1]
                 intensity = intensity.reshape(
                     intensity.shape + (1,) * (rad_part.ndim - 3)
                 )
@@ -589,9 +904,23 @@ class Engine:
                     rad_part = np.where(
                         intensity != 0.0, rad_part / intensity, 0.0
                     )
-            return rad_part
+            arrs = [(name, rad_part, ("wavelength", "los", "stokes"))]
+            wf_flux = wf[:, nrad:].reshape(
+                (wf.shape[0], len(ftypes), nobs) + wf.shape[2:]
+            )
+            for ti, ftype in enumerate(ftypes):
+                fname = f"{_FLUX_NAMES[ftype]}_flux"
+                fv = wf_flux[:, ti]
+                if log_space:
+                    fvals = out[fname].to_numpy()
+                    fvals = fvals.reshape(fvals.shape + (1,) * (fv.ndim - 2))
+                    with np.errstate(invalid="ignore", divide="ignore"):
+                        fv = np.where(fvals != 0.0, fv / fvals, 0.0)
+                arrs.append((
+                    f"{name}_{fname}", fv, ("wavelength", "flux_location")
+                ))
+            return arrs
 
-        dims = ("wavelength", "los", "stokes")
         jext = grads.get("extinction")
         jssa = grads.get("ssa")
         jleg = grads.get("leg_coeff")
@@ -619,11 +948,21 @@ class Engine:
             if m.interpolator is not None:
                 wf = np.einsum("oa,wua->wuo", m.interpolator, wf)
             assign = m.assign_name if m.assign_name else name
-            arr = emit(wf, m.log_radiance_space)
-            da = DataArray(np.moveaxis(arr, -1, 0), (m.interp_dim, *dims))
-            out[assign] = out[assign] + da if assign in out else da
+            for vname, arr, dims in emit(assign, wf, m.log_radiance_space):
+                # the trailing axis is the mapping's altitude/output axis
+                da = DataArray(np.moveaxis(arr, -1, 0), (m.interp_dim, *dims))
+                out[vname] = out[vname] + da if vname in out else da
 
         for name, m in atmosphere.surface.derivative_mappings.items():
             if jalb is None:
                 continue
-            out[name] = DataArray(emit(jalb * m.d_brdf[:, 0][:, None]), dims)
+            for vname, arr, dims in emit(name, jalb * m.d_brdf[:, 0][:, None]):
+                out[vname] = DataArray(arr, dims)
+
+
+_FLUX_NAMES = {
+    FluxType.Upwelling: "upwelling",
+    FluxType.Downwelling: "downwelling",
+    FluxType.Actinic: "actinic",
+    FluxType.Divergence: "divergence",
+}

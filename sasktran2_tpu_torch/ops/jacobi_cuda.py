@@ -102,7 +102,10 @@ def jacobi_eigh(a, sweeps: int):
         )
     _build.check_launch(err, "jacobi")
     jacobi_eigh.launches += 1
+    jacobi_eigh.launches_by_n[n] = jacobi_eigh.launches_by_n.get(n, 0) + 1
     return w, v
 
 
+# launches of the kernel, in all and per matrix order n
 jacobi_eigh.launches = 0
+jacobi_eigh.launches_by_n = {}

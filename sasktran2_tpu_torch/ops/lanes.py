@@ -13,7 +13,11 @@ their dispatch. It mirrors the JAX package's gates (``lanes.py:338-344``,
   for a CUDA tensor and runs its plain PyTorch twin for a CPU tensor.
   K > 24 takes the torch-op path, where the blocks are solved by
   ``torch.linalg.solve``, as the reference solves them with
-  ``jnp.linalg.solve``.
+  ``jnp.linalg.solve``. That path is the port of the reference's own scan
+  ``_thomas_forward`` at K > 24 (``lanes.py:403-433``), which the
+  polarized solver takes at 16 streams (2K = 48): the reference has no
+  Pallas kernel there, so neither does the port. It is not a fallback
+  from a kernel.
 * ``lane_jacobi_eigh_scan``: a 4-D ``[P, n, n, W]`` matrix whose padded
   order is at most 32 goes to ``jacobi_cuda.jacobi_eigh`` (kernel on CUDA,
   plain twin on the CPU); any other shape takes the plain sweep loop.
@@ -28,6 +32,10 @@ import torch
 
 THOMAS_K_MAX = 24
 JACOBI_N_MAX = 32
+
+# block-Thomas solves that took the torch-op loop (K > 24), per block size
+# K: the counterpart of the kernel's ``thomas_cuda.thomas_solve.launches_by_k``
+TORCH_OP_THOMAS_CALLS_BY_K = {}
 
 
 def lane_mm(a, b):
@@ -198,8 +206,10 @@ def _thomas_batched(lo, di, up, r):
     to ``thomas_cuda.thomas_solve``; larger blocks to the torch-op loop."""
     from . import thomas_cuda
 
-    if di.shape[-2] <= THOMAS_K_MAX:
+    K = di.shape[-2]
+    if K <= THOMAS_K_MAX:
         return thomas_cuda.thomas_solve(lo, di, up, r)
+    TORCH_OP_THOMAS_CALLS_BY_K[K] = TORCH_OP_THOMAS_CALLS_BY_K.get(K, 0) + 1
     return thomas_cuda.thomas_solve_plain(lo, di, up, r)
 
 

@@ -90,7 +90,10 @@ def thomas_solve(lo, di, up, r):
         )
     _build.check_launch(err, "thomas")
     thomas_solve.launches += 1
+    thomas_solve.launches_by_k[K] = thomas_solve.launches_by_k.get(K, 0) + 1
     return x
 
 
+# launches of the kernel, in all and per block size K
 thomas_solve.launches = 0
+thomas_solve.launches_by_k = {}

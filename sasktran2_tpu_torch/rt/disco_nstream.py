@@ -38,7 +38,7 @@ from .disco import (
     clamp_ssa,
 )
 
-__all__ = ["build_mode_tables", "solve_nstream"]
+__all__ = ["build_mode_tables", "solve_nstream", "solve_nstream_m0_levels"]
 
 
 def _contract_legendre(weights, beta):
@@ -423,3 +423,70 @@ def solve_nstream(
         "f0": f0,
     }
     return rad, internal
+
+
+def solve_nstream_m0_levels(
+    dtau,
+    omega,
+    beta,
+    albedo,
+    tables: ModeTables,
+    include_ss: bool = True,
+    chapman=None,
+    f0=None,
+    thermal_b0=None,
+    thermal_b1_bottom=None,
+    surface_emission=None,
+):
+    """The m = 0 solve's level stream fields, wavelength-minor
+    (``sasktran2_tpu/rt/disco_nstream.py:540``): everything the flux
+    assembly needs.
+
+    Same inputs as ``solve_nstream``. Returns (levels, t_top, t_ground):
+    levels a dict of [P, N, W] stream fields at the layer tops and bottoms,
+    t_top [P, W] and t_ground [W] the direct beam's transmission. Unlike
+    ``solve_nstream``'s modes, this one is not checkpointed: every flux
+    output of an engine call depends on it, and each output's Jacobian
+    row would recompute it.
+    """
+    if thermal_b0 is not None or thermal_b1_bottom is not None or (
+        surface_emission is not None
+    ):
+        msg = (
+            "thermal DO sources are not ported yet "
+            "(ROADMAP Queue 1 slice 4, thermal DO sources)"
+        )
+        raise NotImplementedError(msg)
+    dt = dtau.dtype
+    dev = dtau.device
+
+    def const(a):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    mu0 = tables.mu0
+    mu = np.asarray(tables.mu)
+    w = np.asarray(tables.w)
+    t_top, t_ground, sbar = beam_attenuation(dtau, mu0, chapman)
+    nstr = 2 * len(mu)
+    luse = min(beta.shape[0], max(nstr, 1))
+    beta = beta[:luse]
+    if f0 is None:
+        f0 = torch.ones(albedo.shape, dtype=dt, device=dev)
+    else:
+        f0 = torch.as_tensor(f0, dtype=dt, device=dev).broadcast_to(
+            albedo.shape
+        )
+    user_mu = np.asarray(tables.user_mu)
+    user_up = torch.ones(len(user_mu), dtype=torch.bool, device=dev)
+    args = (
+        0,
+        const(tables.lam_stream[0, :luse]),
+        const(tables.lam_sun[0, :luse]),
+        const(tables.lam_user[0, :luse]),
+        const(tables.parity[0, :luse]),
+        dtau, omega, beta, t_top, sbar, t_ground,
+        albedo, mu, w, mu0, user_mu, user_up, include_ss, f0,
+        True,
+    )
+    _, levels = _mode_radiance(*args)
+    return levels, t_top, t_ground

@@ -1,21 +1,24 @@
 """The discrete-ordinates multiple-scatter source evaluated along spherical
-rays (counterpart of ``sasktran2_tpu/rt/do_source.py``, scalar
-wavelength-minor path).
+rays (counterpart of ``sasktran2_tpu/rt/do_source.py``, the scalar and
+polarized wavelength-minor paths).
 
 The DO solution's source function is evaluated analytically at both ends
 of every traced segment: the level fields of the segment's layer, blended
 linearly in depth between the layer's top and bottom, contracted with the
-normalized associated Legendre functions of the segment's propagation
-direction and weighted by its azimuth cosines.
+normalized associated Legendre functions (polarized: the generalized
+spherical functions d0, P+ and P-) of the segment's propagation direction
+and weighted by its azimuth cosines (and sines for U).
 
 Layout on the card. The reference gathers the layer coefficients at every
 segment (a [M, R, S, L, W] tensor, evaluated a few rays at a time under
 ``lax.map``). Here the endpoint evaluations are grouped by layer on the
 host once per geometry (``build_layer_rows``): row j of layer p holds one
 endpoint's angular coefficients. The contraction is then one batched
-product [P, J, M*L] @ [P, M*L, W] per field, whose output [P, J, W] is the
-largest intermediate, and a row lookup takes each endpoint's value back
-to its segment.
+product [P, J, M*L] @ [P, M*L, W] per field (polarized: [P, 3J, 3*M*L]
+@ [P, 3*M*L, W], the three Stokes rows of each endpoint against the three
+greek components of B_l g_l), whose output [P, J(, 3), W] is the largest
+intermediate, and a row lookup takes each endpoint's value back to its
+segment.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.wigner import normalized_alp
+from ..ops.wigner import normalized_alp, wigner_d
 from .raytrace import TracedRays
 
 
@@ -41,23 +44,72 @@ def build_ray_angular_tables(traced: TracedRays, nleg: int, num_azimuth: int):
     return {"lam_b": lam_b, "cosm": cosm}
 
 
+def build_ray_vector_tables(traced: TracedRays, nleg: int, num_azimuth: int):
+    """Static angular tables for the polarized ray source
+    (``sasktran2_tpu/rt/do_source.py:224``): the three independent
+    generalized-spherical-function entries of Pi_l^m (d0, P+, P-) at each
+    boundary's *signed* propagation cosine, plus the per-boundary azimuth
+    weights (cos for I/Q, sin for U)."""
+    mu_signed = traced.cos_zenith  # [R, S+1]
+    theta = np.arccos(np.clip(mu_signed, -1.0, 1.0))
+    d0 = np.zeros((num_azimuth, nleg) + mu_signed.shape)
+    pp = np.zeros_like(d0)
+    pm = np.zeros_like(d0)
+    cosm = np.zeros((num_azimuth,) + mu_signed.shape)
+    sinm = np.zeros_like(cosm)
+    dphi = np.pi - traced.boundary_relazi
+    for m in range(num_azimuth):
+        d0[m] = wigner_d(theta, m, 0, nleg)
+        d2p = wigner_d(theta, m, 2, nleg)
+        d2m = wigner_d(theta, m, -2, nleg)
+        pp[m] = 0.5 * (d2p + d2m)
+        pm[m] = 0.5 * (d2p - d2m)
+        cosm[m] = np.cos(m * dphi)
+        sinm[m] = np.sin(m * dphi)
+    return {"d0": d0, "pp": pp, "pm": pm, "cosm": cosm, "sinm": sinm}
+
+
+def _endpoint_coefficients(tables, rr, bb):
+    """The angular coefficients of the endpoints at boundaries (rr, bb):
+    [n, M, L] for the scalar tables of ``build_ray_angular_tables``
+    (cosm[m] lam_b[m, l]); [n, 3, 3, M, L] for the vector tables of
+    ``build_ray_vector_tables``, indexed (output Stokes row I/Q/U, greek
+    component c0/c1/c2 of B_l g_l):
+
+        I = cos (d0 c0),  Q = cos (P+ c1 - P- c2),  U = sin (-P- c1 + P+ c2).
+    """
+    if "lam_b" in tables:
+        lam_b, cosm = tables["lam_b"], tables["cosm"]
+        return np.moveaxis(lam_b[:, :, rr, bb] * cosm[:, None, rr, bb], -1, 0)
+    cos = tables["cosm"][:, None, rr, bb]
+    sin = tables["sinm"][:, None, rr, bb]
+    d0, pp, pm = (tables[k][:, :, rr, bb] for k in ("d0", "pp", "pm"))
+    zero = np.zeros_like(d0)
+    coef = np.stack([
+        np.stack([cos * d0, zero, zero]),
+        np.stack([zero, cos * pp, -cos * pm]),
+        np.stack([zero, -sin * pm, sin * pp]),
+    ])                                              # [3, 3, M, L, n]
+    return np.moveaxis(coef, -1, 0)
+
+
 def build_layer_rows(traced: TracedRays, tables) -> dict:
     """Group the segment-endpoint evaluations of ``traced`` by layer.
 
     Each real segment (r, s) is evaluated at its entrance (boundary s, depth
     fraction ``seg_entrance_frac``) and its exit (boundary s + 1,
     ``seg_exit_frac``), both in layer ``seg_layer[r, s]`` (TOA first).
-    Returns numpy tables:
+    ``tables`` comes from ``build_ray_angular_tables`` (scalar) or
+    ``build_ray_vector_tables`` (polarized). Returns numpy tables:
 
-    * ``coef`` [P, J, M, L]: cosm[m] * lam_b[m, l] at the endpoint of row j
-      of layer p (``tables`` from ``build_ray_angular_tables``); unused
-      rows are zero;
+    * ``coef`` [P, J, M, L] (scalar) or [P, J, 3, 3, M, L] (polarized): the
+      angular coefficients of ``_endpoint_coefficients`` at the endpoint of
+      row j of layer p; unused rows are zero;
     * ``frac`` [P, J]: the endpoint's depth fraction in its layer;
     * ``row_in`` / ``row_out`` [R, S]: the flat row p * J + j of each
       segment's entrance and exit. Padded segments point at row P * J,
       which the evaluation keeps at zero.
     """
-    lam_b, cosm = tables["lam_b"], tables["cosm"]
     seg = traced.seg_layer
     R, S = seg.shape
     P = traced.od_weights.shape[-1] - 1
@@ -76,8 +128,9 @@ def build_layer_rows(traced: TracedRays, tables) -> dict:
     j[order] = np.arange(len(p)) - starts[p[order]]
     J = max(int(counts.max(initial=0)), 1)
 
-    coef = np.zeros((P, J) + lam_b.shape[:2])
-    coef[p, j] = np.moveaxis(lam_b[:, :, rr, bb] * cosm[:, None, rr, bb], -1, 0)
+    values = _endpoint_coefficients(tables, rr, bb)
+    coef = np.zeros((P, J) + values.shape[1:])
+    coef[p, j] = values
     frac_tab = np.zeros((P, J))
     frac_tab[p, j] = frac
     row = p * J + j
@@ -150,5 +203,87 @@ def ms_source_along_rays_minor(internal, rows, include_ss: bool):
     def lookup(row):
         idx = torch.as_tensor(row.reshape(-1), device=dev)
         return flat.index_select(0, idx).reshape(R, S, W)
+
+    return lookup(rows["row_in"]), lookup(rows["row_out"])
+
+
+def ms_source_along_rays_vec_minor(internal, rows, include_ss: bool):
+    """Polarized DO source per unit optical depth at the entrance and exit
+    of every traced segment, in the ray meridian frame, wavelength-minor
+    (``sasktran2_tpu/rt/do_source.py:386``): (j_entrance, j_exit), each
+    [R, S, 3, W].
+
+    ``internal`` comes from ``disco_vec_minor.solve_nstream_vector(...,
+    return_internal=True)`` (levels [M, P, K, W], greeks [4, L, P, W]);
+    ``rows`` from ``build_layer_rows`` on ``build_ray_vector_tables``. The
+    generalized-spherical expansion is evaluated at the signed boundary
+    cosines with the transformed level fields; B_l g_l is decomposed onto
+    the greeks (bg0 = a1 g0 - b1 g1, bg1 = a2 g1 - b1 g0, bg2 = a3 g2).
+    Per layer, one [J * 3, 3 * M * L] @ [3 * M * L, W] product per field
+    (layer top, layer bottom, direct beam) gives every endpoint's (I, Q, U)
+    at once, where the reference gathers [M, R, S, L, W] two rays at a
+    time. Padded segments get zero.
+    """
+    levels = internal["levels"]
+    omega = internal["omega"]                       # [P, W]
+    greeks = internal["greeks"]                     # [4, L, P, W]
+    dt, dev = omega.dtype, omega.device
+
+    def const(x):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+    parity = np.asarray(internal["parity"])         # [M, L]
+    s_tab = const(internal["stream_sum"])           # [M, L, 3, K]
+    par_d = const(internal["par_d"])                # [M, L, 3]
+    M, L = parity.shape
+    P, W = omega.shape
+    a1, a2, a3, b1 = (g.movedim(0, 1)[None] for g in greeks)  # [1, P, L, W]
+
+    def components(ip, im):
+        # stream sums g [M, P, L, 3, W], then B_l g: [M, P, 3, L, W]
+        t1 = torch.einsum("mlck,mpkw->mplcw", s_tab, ip)
+        t2 = torch.einsum("mlck,mpkw->mplcw", s_tab, im)
+        g = t1 + par_d[:, None, :, :, None] * t2
+        g0, g1, g2 = g[..., 0, :], g[..., 1, :], g[..., 2, :]
+        return torch.stack(
+            [a1 * g0 - b1 * g1, a2 * g1 - b1 * g0, a3 * g2], dim=2
+        )
+
+    half_om = 0.5 * omega[None, :, None, None, :]
+
+    def per_layer(c):
+        # [M, P, 3, L, W] -> [P, 3 * M * L, W]
+        return c.permute(1, 2, 0, 3, 4).reshape(P, 3 * M * L, W)
+
+    c_top = per_layer(half_om * components(
+        levels["i_plus_top"], levels["i_minus_top"]))
+    c_bot = per_layer(half_om * components(
+        levels["i_plus_bot"], levels["i_minus_bot"]))
+    coef = const(rows["coef"][..., :M, :L])          # [P, J, 3, 3, M, L]
+    J = coef.shape[1]
+    coef = coef.reshape(P, J * 3, 3 * M * L)
+    frac = const(np.repeat(rows["frac"], 3, axis=1))[..., None]  # [P, 3J, 1]
+    y = (1.0 - frac) * (coef @ c_top) + frac * (coef @ c_bot)
+    if include_ss:
+        # beam column B_l e1 = (a1, -b1, 0) times nu_l d^l_{m0}(mu0)
+        two_minus_delta = np.where(np.arange(M) == 0, 1.0, 2.0)
+        sun = const(parity * internal["d0_sun"] * two_minus_delta[:, None])
+        sun = sun[:, None, :, None]                  # [M, 1, L, 1]
+        c_beam = torch.stack(
+            [a1 * sun, -b1 * sun, torch.zeros_like(a1 * sun)], dim=2
+        )                                            # [M, P, 3, L, W]
+        c_beam = per_layer(
+            omega[None, :, None, None, :] / (4.0 * math.pi) * c_beam
+        )
+        amp = (internal["t_top"] * internal["f0"][None, :])[:, None, :]
+        decay = (internal["sbar"] * internal["dtau"])[:, None, :]
+        y = y + (coef @ c_beam) * amp * torch.exp(-decay * frac)
+    y = y.reshape(P * J, 3, W)
+    flat = torch.cat([y, torch.zeros_like(y[:1])])
+    R, S = rows["row_in"].shape
+
+    def lookup(row):
+        idx = torch.as_tensor(row.reshape(-1), device=dev)
+        return flat.index_select(0, idx).reshape(R, S, 3, W)
 
     return lookup(rows["row_in"]), lookup(rows["row_out"])

@@ -1,5 +1,6 @@
 """Exact single scatter and the other line-of-sight sources (counterpart of
-``sasktran2_tpu/rt/singlescatter.py``, scalar 1D functions).
+``sasktran2_tpu/rt/singlescatter.py``, the 1D functions, scalar and
+polarized).
 
 Every input is wavelength-leading ([W, A] level profiles, [W] surface
 values), so each function is one batched torch computation over the whole
@@ -27,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.wigner import legendre_p
+from ..ops.wigner import legendre_p, wigner_d
 from ..util.torchmath import safe_div
 from .raytrace import TracedRays
 
@@ -37,6 +38,14 @@ def phase_tables(traced: TracedRays, nlegendre: int) -> np.ndarray:
     return np.moveaxis(
         legendre_p(traced.cos_scatter, nlegendre), 0, -1
     )
+
+
+def phase_tables_d02(traced: TracedRays, nlegendre: int) -> np.ndarray:
+    """d^l_{02}(Theta) at every segment boundary: [R, S+1, L] (static).
+    Contracted with the b1 greek coefficients it gives the I -> Q element
+    of the scattering matrix."""
+    theta = np.arccos(np.clip(traced.cos_scatter, -1.0, 1.0))
+    return np.moveaxis(wigner_d(theta, 0, 2, nlegendre), 0, -1)
 
 
 def _const(x, like):
@@ -105,6 +114,66 @@ def integrate_single_scatter(
         ground * albedo[..., None] * mu0_g * t_sun[..., 0] / math.pi
     ) * torch.exp(-total_od)
     return radiance + ground_term
+
+
+def integrate_single_scatter_polarized(
+    extinction, ssa, leg_a1, leg_b1, albedo, traced: TracedRays, phase_tab,
+    d02_tab,
+):
+    """Sun-normalized polarized (I, Q, U) single-scatter radiance of every
+    ray, [W, R, 3] (``sasktran2_tpu/rt/singlescatter.py:142``).
+
+    The sun is unpolarized, so only the first column of the scattering
+    matrix enters: in the scattering plane the scattered Stokes vector is
+    (a1(Theta), -sum_l b1_l d^l_{02}(Theta), 0), rotated into the ray
+    meridian basis by the traced (cos 2s, sin 2s) tables. Attenuation is
+    scalar and the Lambertian ground term is unpolarized. leg_a1/leg_b1
+    [W, A, L]; ``d02_tab`` from ``phase_tables_d02``.
+    """
+    odw = _const(traced.od_weights, extinction)
+    sunw = _const(traced.sun_weights, extinction)
+    intw = _const(traced.interp_weights, extinction)
+    lengths = _const(traced.lengths, extinction)
+    mask = _const(traced.mask, extinction)
+    pt = _const(phase_tab, extinction)
+    d02 = _const(d02_tab, extinction)
+    c2 = _const(traced.cos2rot, extinction)
+    s2 = _const(traced.sin2rot, extinction)
+
+    seg_od = torch.einsum("rsa,wa->wrs", odw, extinction)
+    sun_od = torch.einsum("rba,wa->wrb", sunw, extinction)
+    t_sun = torch.exp(-torch.clamp(sun_od, max=300.0))
+
+    kscat = extinction * ssa
+    kscat_b = torch.einsum("rba,wa->wrb", intw, kscat)
+
+    def beta_boundary(lc):
+        num = torch.einsum("rba,wal->wrbl", intw, lc * kscat[..., None])
+        return safe_div(num, kscat_b[..., None])
+
+    phase_i = torch.einsum("wrbl,rbl->wrb", beta_boundary(leg_a1), pt)
+    # I -> Q scattering-plane element: F21(Theta) = -sum_l b1_l d^l_{02}
+    f21 = -torch.einsum("wrbl,rbl->wrb", beta_boundary(leg_b1), d02)
+
+    base = kscat_b / (4.0 * math.pi) * t_sun
+    j_b = torch.stack(
+        [base * phase_i, base * f21 * c2, base * f21 * s2], dim=-1
+    )                                               # [W, R, S+1, 3]
+    blend = (_source_factor(seg_od) * lengths * mask)[..., None]
+    seg_src = blend * 0.5 * (j_b[..., :-1, :] + j_b[..., 1:, :])
+    od_m = seg_od * mask
+    radiance = torch.sum(
+        seg_src * torch.exp(-_closer_od(od_m))[..., None], dim=-2
+    )
+
+    ground = _const(traced.ground_hit, extinction)
+    mu0_g = _const(np.maximum(traced.ground_cos_sza, 0.0), extinction)
+    total_od = torch.sum(od_m, dim=-1)
+    ground_term = (
+        ground * albedo[..., None] * mu0_g * t_sun[..., 0] / math.pi
+    ) * torch.exp(-total_od)
+    zero = torch.zeros_like(ground_term)
+    return radiance + torch.stack([ground_term, zero, zero], dim=-1)
 
 
 def emission_radiance(

@@ -1,5 +1,5 @@
 """The engine cases that ``chip_smoke.py`` drives and that
-``tools/make_torch_golden.py`` computes reference values for. All three
+``tools/make_torch_golden.py`` computes reference values for. All of them
 use a US76 + Rayleigh + Lambertian 0.3 atmosphere with weighting
 functions on, 101 altitudes from 0 to 100 km (P = 100 layers),
 cos_sza = 0.6, and the 1024-point grid ``np.linspace(280, 800, 1024)`` nm.
@@ -17,6 +17,30 @@ cos_sza = 0.6, and the 1024-point grid ``np.linspace(280, 800, 1024)`` nm.
 * ``twostream_case``: bench.py's ``_build_engine_2str``: the two-stream
   solver with DO single scatter, plane-parallel geometry, one
   ground-viewing ray (cos_viewing_zenith 0.8, relative azimuth 0.3).
+* ``flux16_case``: ``smoke_case``'s streams and sources, one
+  ground-viewing ray and flux observers at 0, 5, 10, 20, 40 and 80 km
+  with all four flux types (upwelling, downwelling, actinic,
+  divergence): the m = 0 level solve at K = 16, n = 8.
+* ``pol4_case``: the engine-level counterpart of bench.py's
+  ``pol3_4str_1k``: ``smoke_case`` with ``num_stokes = 3`` at 4 streams
+  (eigensolves of n = 6, BVP blocks of K = 12).
+* ``pol16_case``: the same at 16 streams (n = 24; K = 48 blocks, which
+  the Thomas kernel does not take: the torch-op loop, as the reference's
+  scan).
+* ``limbpol16_case``: ``limb_case`` with ``num_stokes = 3``: exact
+  polarized single scatter and the vector DO source on a 2-point
+  solar-zenith grid, at ``LIMBPOL_NUM_LOS`` tangent altitudes from 10 to
+  80 km. Each line of sight is three Jacobian rows (I, Q, U), each of
+  which recomputes the six checkpointed 16-stream vector modes (about
+  33 s per line of sight and call with Jacobians on an H100), so the scan
+  is cut from bench.py's 20 lines of sight to 3, the most that keeps
+  ``chip_smoke.py`` near half its time limit (PERF.md section 4 has the
+  arithmetic); streams, layers and wavelengths are not cut.
+
+``POL16_SOLVER_*`` is the solver-level case of the 16-stream polarized
+check: the JAX package cannot compile its polarized engine at 16 streams
+on the CPU, so ``tools/make_torch_golden.py`` stores the inputs and
+outputs of ``solve_nstream_vector`` on ``pol16_case``'s layers instead.
 """
 
 from __future__ import annotations
@@ -32,23 +56,34 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 GOLDEN_PATH = os.path.join(DATA, "golden_nstr16.npz")
 GOLDEN_LIMB_PATH = os.path.join(DATA, "golden_limb16.npz")
 GOLDEN_2STR_PATH = os.path.join(DATA, "golden_2str.npz")
+GOLDEN_FLUX16_PATH = os.path.join(DATA, "golden_flux16.npz")
+GOLDEN_POL4_PATH = os.path.join(DATA, "golden_pol4.npz")
+GOLDEN_POL16_SOLVER_PATH = os.path.join(DATA, "golden_pol16_solver.npz")
 LIMB_TANGENTS_M = np.linspace(10000.0, 80000.0, 20)
+LIMBPOL_NUM_LOS = 3
+FLUX_ALTITUDES_M = (0.0, 5000.0, 10000.0, 20000.0, 40000.0, 80000.0)
+# the pol16 solver-level case: the four rays of smoke_case, the azimuth
+# modes a Rayleigh atmosphere needs, and the golden file's wavelengths
+POL16_SOLVER_USER_MU = np.array([0.4, 0.6, 0.8, 1.0])
+POL16_SOLVER_AZIMUTH = 0.5
+POL16_SOLVER_NUM_AZIMUTH = 3
 
 
 def smoke_wavelengths():
     return np.linspace(280.0, 800.0, NUM_WAVELENGTHS)
 
 
-def smoke_case(sk, dtype: str, wavelengths_nm):
+def smoke_case(sk, dtype: str, wavelengths_nm, num_stokes=1, nstr=16):
     """(config, geometry, viewing, atmosphere) of the case, built from
     ``sk``: the port (``sasktran2_tpu_torch``) or the JAX package
     (``sasktran2_tpu``), whose classes and constituents mirror each
     other."""
     config = sk.Config(
-        num_streams=16,
+        num_streams=nstr,
+        num_stokes=num_stokes,
         multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
         single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
-        num_singlescatter_moments=16,
+        num_singlescatter_moments=nstr,
         dtype=dtype,
     )
     geometry = _geometry(sk, sk.GeometryType.PlaneParallel)
@@ -81,11 +116,13 @@ def _geometry(sk, geometry_type):
     )
 
 
-def limb_case(sk, dtype: str, wavelengths_nm):
+def limb_case(sk, dtype: str, wavelengths_nm, num_stokes=1,
+              tangents_m=LIMB_TANGENTS_M):
     """(config, geometry, viewing, atmosphere) of the 16-stream limb scan,
     built from ``sk`` as ``smoke_case`` is."""
     config = sk.Config(
         num_streams=16,
+        num_stokes=num_stokes,
         multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
         single_scatter_source=sk.SingleScatterSource.Exact,
         num_singlescatter_moments=16,
@@ -94,7 +131,7 @@ def limb_case(sk, dtype: str, wavelengths_nm):
     )
     geometry = _geometry(sk, sk.GeometryType.Spherical)
     viewing = sk.ViewingGeometry()
-    for talt in LIMB_TANGENTS_M:
+    for talt in tangents_m:
         viewing.add_ray(sk.TangentAltitudeSolar(float(talt), 0.4, 2e5, 0.6))
     return config, geometry, viewing, _atmosphere(
         sk, config, geometry, wavelengths_nm
@@ -117,3 +154,74 @@ def twostream_case(sk, dtype: str, wavelengths_nm):
     return config, geometry, viewing, _atmosphere(
         sk, config, geometry, wavelengths_nm
     )
+
+
+def flux16_case(sk, dtype: str, wavelengths_nm):
+    """(config, geometry, viewing, atmosphere) of the 16-stream flux case,
+    built from ``sk`` as ``smoke_case`` is."""
+    config = sk.Config(
+        num_streams=16,
+        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        num_singlescatter_moments=16,
+        flux_types=(
+            sk.FluxType.Upwelling, sk.FluxType.Downwelling,
+            sk.FluxType.Actinic, sk.FluxType.Divergence,
+        ),
+        dtype=dtype,
+    )
+    geometry = _geometry(sk, sk.GeometryType.PlaneParallel)
+    viewing = sk.ViewingGeometry()
+    viewing.add_ray(sk.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
+    for alt in FLUX_ALTITUDES_M:
+        viewing.add_flux_observer(sk.FluxObserverSolar(0.6, alt))
+    return config, geometry, viewing, _atmosphere(
+        sk, config, geometry, wavelengths_nm
+    )
+
+
+def pol4_case(sk, dtype: str, wavelengths_nm):
+    """``smoke_case`` polarized at 4 streams."""
+    return smoke_case(sk, dtype, wavelengths_nm, num_stokes=3, nstr=4)
+
+
+def pol16_case(sk, dtype: str, wavelengths_nm):
+    """``smoke_case`` polarized at 16 streams."""
+    return smoke_case(sk, dtype, wavelengths_nm, num_stokes=3, nstr=16)
+
+
+def limbpol16_case(sk, dtype: str, wavelengths_nm):
+    """``limb_case`` polarized, on ``LIMBPOL_NUM_LOS`` lines of sight."""
+    return limb_case(
+        sk, dtype, wavelengths_nm, num_stokes=3,
+        tangents_m=np.linspace(10000.0, 80000.0, LIMBPOL_NUM_LOS),
+    )
+
+
+def golden_error(name, got, ref, stokes_axis=-1):
+    """The error of ``got`` against the golden ``ref`` by which a case is
+    gated: for ``radiance`` and the ``*_flux`` variables the largest error
+    relative to the element; for a polarized radiance (three Stokes
+    components on ``stokes_axis``) I per element and Q, U relative to the
+    largest |Q| and |U|, so that a component near zero is not held to
+    itself; for ``wf_*`` and gradients the largest error relative to the
+    variable's largest magnitude. Where the reference is exactly zero (the
+    divergence flux of a conservative atmosphere) the error is absolute."""
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    err = np.abs(got - ref)
+
+    def nonzero(x):
+        return np.where(x > 0.0, x, 1.0)
+
+    per_element = name == "radiance" or (
+        name.endswith("_flux") and not name.startswith("wf_"))
+    if name == "radiance" and ref.shape[stokes_axis] == 3:
+        i_err = np.take(err, 0, stokes_axis) / nonzero(
+            np.abs(np.take(ref, 0, stokes_axis)))
+        qu = [np.max(np.take(err, c, stokes_axis)) / nonzero(
+            np.max(np.abs(np.take(ref, c, stokes_axis)))) for c in (1, 2)]
+        return float(max(np.max(i_err), *qu))
+    if per_element:
+        return float(np.max(err / nonzero(np.abs(ref))))
+    return float(np.max(err) / nonzero(np.max(np.abs(ref))))

@@ -137,14 +137,46 @@ def _ground_viewing(flux=False):
      _ground_viewing, "successive orders"),
     (lambda: _config(skt, emission_source=skt.EmissionSource.DiscreteOrdinates),
      _ground_viewing, "thermal emission"),
-    (lambda: _config(skt, num_stokes=3), _limb_viewing, "polarized"),
-    (lambda: _config(skt, num_stokes=3), _ground_viewing, "polarized"),
-    (lambda: _config(skt), lambda: _ground_viewing(flux=True), "flux"),
+    (lambda: _config(skt, num_stokes=3), lambda: _ground_viewing(flux=True),
+     "polarized radiance with flux observers.*slice 9"),
+    (lambda: _config(skt, num_stokes=3,
+                     emission_source=skt.EmissionSource.TwoStream),
+     _limb_viewing, "thermal emission.*slice 4"),
+    (lambda: _config(skt, num_stokes=3,
+                     ms=skt.MultipleScatterSource.SuccessiveOrders),
+     _ground_viewing, "successive orders.*slice 10"),
 ])
 def test_out_of_slice_raises(config, viewing, match):
     geometry = _geometry(skt, "PlaneParallel")
     with pytest.raises(NotImplementedError, match=match):
         skt.Engine(config(), geometry, viewing(), device="cpu")
+
+
+class _StandInBRDF:
+    """A surface constituent that sets a BRDF kernel, as the JAX package's
+    BRDF constituents do (the port has none yet)."""
+
+    def add_to_atmosphere(self, atmo):
+        atmo.surface.brdf = object()
+        atmo.surface.brdf_args = np.zeros((atmo.num_wavelengths, 1))
+
+    def register_derivative(self, atmo, name):
+        pass
+
+
+@pytest.mark.parametrize("num_stokes", [1, 3])
+def test_brdf_surface_raises(num_stokes):
+    """A BRDF surface (scalar or polarized) is refused at the call, naming
+    its slice, instead of being treated as Lambertian."""
+    config = _config(skt, num_stokes=num_stokes)
+    geometry = _geometry(skt, "PlaneParallel")
+    atmo = skt.Atmosphere(geometry, config, wavelengths_nm=np.array([500.0]))
+    skt.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = skt.constituent.Rayleigh()
+    atmo["surface"] = _StandInBRDF()
+    engine = skt.Engine(config, geometry, _ground_viewing(), device="cpu")
+    with pytest.raises(NotImplementedError, match="BRDF.*slice 4"):
+        engine.calculate_radiance(atmo)
 
 
 @pytest.mark.parametrize("foreign", ["geometry", "viewing", "atmosphere"])

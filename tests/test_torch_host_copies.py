@@ -1,8 +1,11 @@
 """The port's copies of the JAX package's host modules, pinned bit-equal to
 the originals: the ray tracer (native and numpy) and its solar-table mode,
-the single-scatter phase tables, the DO ray-source angular tables, the
-stream quadrature and associated Legendre tables, ``Config``, the US76 +
-Rayleigh + Lambertian atmosphere, and ``params.atmosphere_from_reference``.
+the single-scatter phase tables (with the polarized d^l_02 tables), the
+DO ray-source angular tables (scalar and polarized), the polarized
+solver's Pi matrices and per-greek mode tables, the engine's Stokes-basis
+rotations and flux-observer interpolation, the stream quadrature and
+associated Legendre tables, ``Config``, the US76 + Rayleigh + Lambertian
+atmosphere, and ``params.atmosphere_from_reference``.
 The geometries are the 16-stream slice's (cut to 20 altitudes), both cases
 of ``tests/test_torch_engine.py`` and a spherical limb scan with a
 ground-viewing ray; each side builds its objects with its own package from
@@ -18,13 +21,21 @@ import sasktran2_tpu_torch as skt
 from sasktran2_tpu import config as config_ref
 from sasktran2_tpu.ops import quadrature as quadrature_ref
 from sasktran2_tpu.ops import wigner as wigner_ref
+from sasktran2_tpu.rt import disco_vec as disco_vec_ref
+from sasktran2_tpu.rt import disco_vec_minor as disco_vec_minor_ref
 from sasktran2_tpu.rt import do_source as do_source_ref
 from sasktran2_tpu.rt import raytrace as raytrace_ref
 from sasktran2_tpu.rt import singlescatter as singlescatter_ref
 from sasktran2_tpu_torch import config as config_port
 from sasktran2_tpu_torch.ops import quadrature, wigner
 from sasktran2_tpu_torch.params import atmosphere_from_reference
-from sasktran2_tpu_torch.rt import do_source, raytrace, singlescatter
+from sasktran2_tpu_torch.rt import (
+    disco_vec,
+    disco_vec_minor,
+    do_source,
+    raytrace,
+    singlescatter,
+)
 
 ALTITUDES = np.linspace(0.0, 100000.0, 20)
 WAVELENGTHS = np.array([310.0, 400.0, 550.0])
@@ -125,11 +136,100 @@ def test_ray_source_tables_equal(reference_traces, name):
             singlescatter.phase_tables(traced, nleg),
             singlescatter_ref.phase_tables(traced, nleg),
         )
-    got = do_source.build_ray_angular_tables(traced, 16, 16)
-    ref = do_source_ref.build_ray_angular_tables(traced, 16, 16)
-    assert set(got) == set(ref)
-    for k in ref:
-        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        np.testing.assert_array_equal(
+            singlescatter.phase_tables_d02(traced, nleg),
+            singlescatter_ref.phase_tables_d02(traced, nleg),
+        )
+    for build, build_ref in (
+        (do_source.build_ray_angular_tables,
+         do_source_ref.build_ray_angular_tables),
+        (do_source.build_ray_vector_tables,
+         do_source_ref.build_ray_vector_tables),
+    ):
+        got = build(traced, 16, 16)
+        ref = build_ref(traced, 16, 16)
+        assert set(got) == set(ref)
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize(("nstr", "nleg", "mu0", "num_azimuth"),
+                         [(2, 2, 0.6, None), (4, 4, 0.35, None),
+                          (16, 16, 0.6, 3), (8, 3, 0.9999, 3)])
+def test_vector_tables_equal(nstr, nleg, mu0, num_azimuth):
+    """The polarized solver's host tables: ``NS``, ``DSIGN``, the Pi
+    matrices and every field of ``build_vector_minor_tables``."""
+    user_mu = np.array([0.35, 0.8, 0.55])
+    assert disco_vec.NS == disco_vec_ref.NS
+    np.testing.assert_array_equal(disco_vec.DSIGN, disco_vec_ref.DSIGN)
+    for m in range(3):
+        np.testing.assert_array_equal(
+            disco_vec._pi_matrices(user_mu, m, nleg),
+            disco_vec_ref._pi_matrices(user_mu, m, nleg),
+        )
+    got = disco_vec_minor.build_vector_minor_tables(
+        nstr, nleg, mu0, user_mu, num_azimuth=num_azimuth)
+    ref = disco_vec_minor_ref.build_vector_minor_tables(
+        nstr, nleg, mu0, user_mu, num_azimuth=num_azimuth)
+    for field in dataclasses.fields(ref):
+        np.testing.assert_array_equal(
+            getattr(got, field.name), getattr(ref, field.name),
+            err_msg=field.name,
+        )
+
+
+@pytest.mark.parametrize("basis", ["Standard", "Solar", "Observer"])
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_stokes_basis_rotations_equal(name, basis):
+    """The engine's per-line-of-sight Stokes rotations (C, S) and the
+    flux-observer interpolation of a polarized or scalar engine of each
+    geometry."""
+    engines = {}
+    for pkg in (sk, skt):
+        _, geometry, rays = _build(pkg, name)
+        config = pkg.Config(
+            num_streams=4, num_stokes=3,
+            multiple_scatter_source=pkg.MultipleScatterSource.NoSource,
+            single_scatter_source=pkg.SingleScatterSource.Exact,
+            stokes_basis=getattr(pkg.StokesBasis, basis),
+        )
+        viewing = pkg.ViewingGeometry()
+        for ray in rays:
+            viewing.add_ray(ray)
+        kw = {"device": "cpu"} if pkg is skt else {}
+        engines[pkg] = pkg.Engine(config, geometry, viewing, **kw)
+    np.testing.assert_array_equal(engines[skt]._stokes_cs,
+                                  engines[sk]._stokes_cs)
+    rng = np.random.default_rng(2)
+    arr = rng.normal(size=(3, len(engines[sk]._rays), 3, 2))
+    np.testing.assert_array_equal(engines[skt]._rotate_stokes(arr, 2),
+                                  engines[sk]._rotate_stokes(arr, 2))
+
+
+def test_flux_groups_equal():
+    """Flux groups: observers grouped by cos_sza in sorted order, their
+    m = 0 tables and the interpolation onto their altitudes."""
+    engines = {}
+    for pkg in (sk, skt):
+        config, geometry, rays = _build(pkg, "engine_pseudospherical")
+        viewing = pkg.ViewingGeometry()
+        for ray in rays:
+            viewing.add_ray(ray)
+        for cos_sza, alt in ((0.6, 0.0), (0.3, 12345.0), (0.6, 99000.0),
+                             (0.3, 100000.0), (0.6, 37000.0)):
+            viewing.add_flux_observer(pkg.FluxObserverSolar(cos_sza, alt))
+        kw = {"device": "cpu"} if pkg is skt else {}
+        engines[pkg] = pkg.Engine(config, geometry, viewing, **kw)
+    got, ref = engines[skt]._flux_groups, engines[sk]._flux_groups
+    assert len(got) == len(ref) == 2
+    for (idx, tables, interp), (idx_r, tables_r, interp_r) in zip(got, ref):
+        np.testing.assert_array_equal(idx, idx_r)
+        np.testing.assert_array_equal(interp, interp_r)
+        for field in dataclasses.fields(tables_r):
+            np.testing.assert_array_equal(
+                getattr(tables, field.name), getattr(tables_r, field.name),
+                err_msg=field.name,
+            )
 
 
 @pytest.mark.parametrize("refraction", ["los", "solar"])

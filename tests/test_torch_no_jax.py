@@ -3,7 +3,9 @@
 In a fresh interpreter: import ``sasktran2_tpu_torch``, build a US76 +
 Rayleigh + Lambertian atmosphere with the port's constituents, run a tiny
 spherical engine with a ground-viewing and a limb ray, exact single
-scatter and DO multiple scatter on the CPU, and check that neither ``jax`` nor any ``sasktran2_tpu``
+scatter and DO multiple scatter on the CPU (scalar; polarized, which runs
+the vector solver and the vector limb source; or scalar with flux
+observers), and check that neither ``jax`` nor any ``sasktran2_tpu``
 module is in ``sys.modules`` and that the host ray tracer was built inside
 the port. A static pass parses every module of the port, and
 ``chip_smoke.py``, for such imports. With no GPU, an engine that names no
@@ -30,8 +32,11 @@ SCRIPT = textwrap.dedent("""
     import sasktran2_tpu_torch as sk
     from sasktran2_tpu_torch import native
 
+    case = sys.argv[1]
+    nstokes = 3 if case == "polarized" else 1
     config = sk.Config(
         num_streams=4,
+        num_stokes=nstokes,
         multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
         single_scatter_source=sk.SingleScatterSource.Exact,
     )
@@ -43,6 +48,8 @@ SCRIPT = textwrap.dedent("""
     viewing = sk.ViewingGeometry()
     viewing.add_ray(sk.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
     viewing.add_ray(sk.TangentAltitudeSolar(30000.0, 0.3, 200000.0, 0.6))
+    if case == "flux":
+        viewing.add_flux_observer(sk.FluxObserverSolar(0.6, 10000.0))
     atmo = sk.Atmosphere(geometry, config, wavelengths_nm=[350.0, 600.0])
     sk.climatology.us76.add_us76_standard_atmosphere(atmo)
     atmo["rayleigh"] = sk.constituent.Rayleigh()
@@ -50,8 +57,10 @@ SCRIPT = textwrap.dedent("""
     engine = sk.Engine(config, geometry, viewing, device="cpu")
     out = engine.calculate_radiance(atmo)
     rad = out["radiance"].to_numpy()
-    assert rad.shape == (2, 2, 1) and np.all(rad > 0), rad
+    assert rad.shape == (2, 2, nstokes) and np.all(rad[..., 0] > 0), rad
     assert "wf_rayleigh_pressure_pa" in out
+    if case == "flux":
+        assert "wf_rayleigh_pressure_pa_downwelling_flux" in out
     lib = native.get_native_lib()
     if lib is not None:
         built = os.path.realpath(lib._name)
@@ -66,11 +75,12 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_never_imports_jax():
+@pytest.mark.parametrize("case", ["scalar", "polarized", "flux"])
+def test_port_never_imports_jax(case):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        [sys.executable, "-c", SCRIPT, case], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300, check=False,
     )
     assert proc.returncode == 0, proc.stderr
