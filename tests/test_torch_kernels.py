@@ -10,7 +10,9 @@ the dense f64 truth (f32, within max(4 x the plain twin's error, 1e-5),
 as ``tests/test_pallas_thomas.py`` holds the Pallas kernel) and against
 the plain twin in f64 (1e-12); Jacobi runs at n in {2, 8, 16, 24, 32}
 against numpy's ``eigh`` (f32: eigenvalue sets and reconstruction
-residual) and against the plain twin in f64 (1e-12)."""
+residual) and against the plain twin in f64 (1e-12), and at the engines'
+[100, n, n, 1024] for n = 8 (the register branch) and n = 12 and 24 (the
+shared-memory branch)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -96,7 +98,8 @@ def test_thomas_kernel_vs_plain_on_gpu(cuda_device, P, K, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(("P", "n", "W"), JACOBI_SHAPES + [(100, 8, 1024)])
+@pytest.mark.parametrize(("P", "n", "W"), JACOBI_SHAPES + [
+    (100, 8, 1024), (100, 12, 1024), (100, 24, 1024)])
 def test_jacobi_kernel_vs_plain_on_gpu(cuda_device, P, n, W):
     a = torch.tensor(_sym_inputs(P, n, W), device=cuda_device)
     before = jacobi_cuda.jacobi_eigh.launches
