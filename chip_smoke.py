@@ -72,6 +72,16 @@ final line:
     conservative Rayleigh slab at 16 against 8 streams.
 12. The polarized 16-stream limb scan (``scenarios.limbpol16_case``)
     against the port's own float64 engine, as 11 (b).
+13. The MODIS BRDF case (``scenarios.brdf16_case``: ``smoke_case`` over
+    a BRDF, all 16 azimuth modes) with the checks of phase 4 against
+    ``golden_brdf16.npz``; its Thomas launches per call must be at least
+    16/3 of ground16's (phase 4), the count that every mode solved gives,
+    which shows the azimuth-mode truncation was off.
+14. The thermal infrared case with fluxes (``scenarios.thermal16_case``:
+    4,000-15,000 nm, the sun off, DO emission, 4 rays and 6 observers)
+    against ``golden_thermal16.npz``.
+15. The thermal limb scan (``scenarios.thermallimb16_case``, 20 limb
+    rays) against ``golden_thermallimb16.npz``.
 
 Each engine case prints its launches per kernel instance, the peak device
 memory, the warm-call times with and without Jacobians and the Jacobian
@@ -851,14 +861,21 @@ def main():
         import sasktran2_tpu_torch as sk
         from sasktran2_tpu_torch.ops import _build, jacobi_cuda, thomas_cuda
         from sasktran2_tpu_torch.scenarios import (
+            GOLDEN_BRDF16_PATH,
             GOLDEN_FLUX16_PATH,
             GOLDEN_POL4_PATH,
+            GOLDEN_THERMAL16_PATH,
+            GOLDEN_THERMALLIMB16_PATH,
             LIMBPOL_NUM_LOS,
+            brdf16_case,
             flux16_case,
             limbpol16_case,
             pol4_case,
             pol16_case,
             smoke_wavelengths,
+            thermal16_case,
+            thermal_wavelengths,
+            thermallimb16_case,
         )
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
@@ -952,11 +969,38 @@ def main():
         kernels_expected={"jacobi": [24], "torch_op_thomas": [48]},
     )
 
+    # --- phase 13: BRDF surface, every azimuth mode -------------------------------
+    brdf_launches = engine_case(
+        sk, brdf16_case, GOLDEN_BRDF16_PATH, wl, 3,
+        "brdf16 nstr=16 P=100 nlos=4 (MODIS)", label,
+        kernels_expected={"thomas": [16], "jacobi": [8]},
+    )
+    ratio = brdf_launches["thomas"] / launches["thomas"]
+    print(f"[{label}] brdf16 Thomas launches per call {brdf_launches['thomas']}"
+          f" against ground16's {launches['thomas']}: {ratio:.3f} x (>= 16/3 "
+          f"= {16 / 3:.3f}: all 16 modes against Rayleigh's 3)", flush=True)
+    check(3 * brdf_launches["thomas"] >= 16 * launches["thomas"],
+          "brdf16 did not solve every azimuth mode")
+
+    # --- phases 14, 15: thermal emission, ground-viewing with fluxes, limb --------
+    twl = thermal_wavelengths()
+    thermal_launches = engine_case(
+        sk, thermal16_case, GOLDEN_THERMAL16_PATH, twl, 3,
+        "thermal16 nstr=16 P=100 nlos=4 nobs=6 (4 types)", label,
+        kernels_expected={"thomas": [16], "jacobi": [8]},
+    )
+    thermallimb_launches = engine_case(
+        sk, thermallimb16_case, GOLDEN_THERMALLIMB16_PATH, twl, 3,
+        "thermallimb16 nstr=16 P=100 nlos=20", label,
+        kernels_expected={"thomas": [16], "jacobi": [8]},
+    )
+
     check_no_jax(label)
     by_path = {
         "ground16": launches, "limb16": limb_launches, "flux16": flux_launches,
         "pol4": pol4_launches, "pol16": pol16_launches,
-        "limbpol16": limbpol_launches,
+        "limbpol16": limbpol_launches, "brdf16": brdf_launches,
+        "thermal16": thermal_launches, "thermallimb16": thermallimb_launches,
     }
 
     def instance(kernel, size, main):

@@ -40,7 +40,7 @@ from .viewinggeo import (
     ViewingGeometry,
 )
 
-from . import climatology, constituent
+from . import climatology, constituent, optical
 from .engine import Engine
 
 __all__ = [
@@ -67,4 +67,5 @@ __all__ = [
     "ViewingGeometry",
     "climatology",
     "constituent",
+    "optical",
 ]

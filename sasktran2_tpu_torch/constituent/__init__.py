@@ -1,8 +1,31 @@
-"""Constituents of the port: the numpy-only ones the scalar slice needs,
-copied so that building an atmosphere never loads jax."""
+"""Constituents of the port: numpy copies of the JAX package's, so that
+building an atmosphere never loads jax."""
 
 from .base import Constituent
-from .brdf import LambertianSurface
+from .brdf import MODIS, LambertianSurface, SnowKokhanovsky, WeightedBRDF
+from .emission import (
+    SurfaceThermalEmission,
+    ThermalEmission,
+    VolumeEmissionRate,
+    planck_blackbody_radiance,
+)
 from .rayleigh import Rayleigh
+from .vmr_absorber import VMRAltitudeAbsorber
 
-__all__ = ["Constituent", "LambertianSurface", "Rayleigh"]
+# the reference's name for it
+MonochromaticVolumeEmissionRate = VolumeEmissionRate
+
+__all__ = [
+    "MODIS",
+    "Constituent",
+    "LambertianSurface",
+    "MonochromaticVolumeEmissionRate",
+    "Rayleigh",
+    "SnowKokhanovsky",
+    "SurfaceThermalEmission",
+    "ThermalEmission",
+    "VMRAltitudeAbsorber",
+    "VolumeEmissionRate",
+    "WeightedBRDF",
+    "planck_blackbody_radiance",
+]

@@ -17,12 +17,15 @@ two-stream solver at nstr = 2 for scalar ground-viewing rays, the N-stream
 solver otherwise, and for limb rays the DO source evaluated along the
 traced rays on a grid of ``num_do_sza`` solar zenith angles); DO, exact or
 table single scatter; Standard and volume-emission-rate emission;
-occultation; the line-of-sight optical depth; a Lambertian surface; scalar
-radiance with flux observers (upwelling, downwelling, actinic and
-divergence fluxes from the m = 0 level fields); and polarized (I, Q, U)
-radiance, ground-viewing and limb, through the wavelength-minor vector
-solver, with the Stokes-basis rotations. Everything else raises
-``NotImplementedError`` naming the ROADMAP slice that will bring it.
+occultation; the line-of-sight optical depth; a Lambertian surface, and on
+scalar ground-viewing rays a BRDF (through its azimuth moments, every
+azimuth mode solved); DO and two-stream thermal emission on scalar
+ground-viewing, limb and flux outputs; scalar radiance with flux observers
+(upwelling, downwelling, actinic and divergence fluxes from the m = 0
+level fields); and polarized (I, Q, U) radiance, ground-viewing and limb,
+through the wavelength-minor vector solver, with the Stokes-basis
+rotations. Everything else raises ``NotImplementedError`` naming the
+ROADMAP slice that will bring it.
 """
 
 from __future__ import annotations
@@ -96,6 +99,9 @@ class Engine:
         self._flux_observers = list(
             getattr(viewing_geometry, "flux_observers", [])
         )
+        self._thermal_do = config.emission_source in (
+            EmissionSource.DiscreteOrdinates, EmissionSource.TwoStream,
+        )
         self._check_slice()
         self._dtype = resolve_dtype(config.dtype, self._device)
 
@@ -149,6 +155,7 @@ class Engine:
         if self._needs_do:
             self._build_do_tables()
         self._num_azi_eff = None
+        self._brdf = None
         self._stokes_cs = (
             self._stokes_basis_rotations() if self._polarized else None
         )
@@ -191,12 +198,13 @@ class Engine:
             raise _not_ported(
                 "successive orders", "ROADMAP Queue 1 slice 10, SO"
             )
-        if cfg.emission_source in (
-            EmissionSource.DiscreteOrdinates, EmissionSource.TwoStream,
-        ):
+        if cfg.num_stokes == 3 and self._thermal_do:
+            # the JAX package sends it to its generic route
+            # (``_polarized_fast_ok``, ``engine.py:1290``)
             raise _not_ported(
-                "DO and two-stream thermal emission",
-                "ROADMAP Queue 1 slice 4, thermal DO sources",
+                "polarized DO and two-stream thermal emission (scalar "
+                "thermal emission runs on the fast path since old slice 4)",
+                "ROADMAP Queue 1 slice 9, generic route",
             )
         if cfg.spectral_grid_mode == SpectralGridMode.EngineIntegratedLineShape:
             raise _not_ported(
@@ -212,6 +220,26 @@ class Engine:
                     f"ray type {type(ray).__name__}",
                     "ROADMAP, Next: ViewingGeometryContainer",
                 )
+
+    def _check_brdf(self):
+        """A BRDF surface runs on the scalar fast path's ground-viewing DO
+        groups only, as in the JAX package (``_twostream_fast_ok``,
+        ``engine.py:1250-1269``); BRDF limb scans, BRDF flux observers and
+        polarized BRDF take its generic route."""
+        where = None
+        if self._polarized:
+            where = "polarized radiance over a BRDF surface"
+        elif self._limb_groups:
+            where = "BRDF surfaces on limb rays"
+        elif self._flux_observers:
+            where = "BRDF surfaces with flux observers"
+        elif not self._do_groups:
+            where = "BRDF surfaces without a DO source"
+        if where is not None:
+            raise _not_ported(
+                f"{where} (the generic per-wavelength route)",
+                "ROADMAP Queue 1 slice 9, generic route",
+            )
 
     # ------------------------------------------------------------------
     def _stokes_basis_rotations(self):
@@ -523,8 +551,11 @@ class Engine:
         """Azimuth modes past the phase expansion's support contribute
         exactly zero, so the mode loop stops there (``engine.py:1295``;
         a Rayleigh atmosphere at nstr=16 solves 3 modes). Polarized
-        engines count the support of every greek."""
-        if self._config.num_forced_azimuth > 0:
+        engines count the support of every greek. None (every mode) under
+        forced azimuth and under a BRDF, whose azimuth moments couple the
+        direct beam into every mode whatever the phase expansion
+        (``engine.py:1312``)."""
+        if self._config.num_forced_azimuth > 0 or self._brdf is not None:
             return None
         lmax = 0
         for key in ("leg_coeff", "leg_a2", "leg_a3", "leg_b1"):
@@ -556,12 +587,28 @@ class Engine:
             beta_t = beta.permute(2, 1, 0)           # [L, P, W]
         return dtau.movedim(0, -1), omega.movedim(0, -1), beta_t
 
+    def _thermal_kw(self, core):
+        """The solvers' thermal arguments under DO or two-stream emission
+        (``engine.py:1440-1450``): the level emission at each TOA-first
+        layer's top and bottom, [P, W], and the surface emission [W]."""
+        if not self._thermal_do:
+            return {}
+        emis = core["emission"]                     # [W, A]
+        return {
+            "thermal_b0": torch.flip(emis[..., 1:], (-1,)).movedim(0, -1),
+            "thermal_b1_bottom": torch.flip(
+                emis[..., :-1], (-1,)).movedim(0, -1),
+            "surface_emission": core["surface_emission"],
+        }
+
     def _do_solve(self, layers, core, tables, user_up, user_azi, **kw):
         """One DO group's solve: the vector solver for a polarized engine,
         the two-stream solver for a scalar ground-viewing group at
-        nstr = 2, the N-stream solver otherwise (the limb groups' solves,
-        ``return_internal=True``, need its level fields at every nstr).
-        Radiance [U, W] (scalar) or [U, 3, W] (polarized)."""
+        nstr = 2 over a Lambertian ground, the N-stream solver otherwise
+        (the limb groups' solves, ``return_internal=True``, need its level
+        fields at every nstr, and a BRDF its azimuth moments;
+        ``engine.py:1460-1466``). Radiance [U, W] (scalar) or [U, 3, W]
+        (polarized)."""
         dtau_t, omega_t, beta_t = layers
         kw = dict(
             include_ss=self._do_include_ss,
@@ -575,7 +622,8 @@ class Engine:
                 dtau_t, omega_t, *beta_t, core["albedo"], tables, user_up,
                 user_azi, **kw,
             )
-        two_stream = self._do_nstr == 2 and not kw.get("return_internal")
+        two_stream = (self._do_nstr == 2 and not kw.get("return_internal")
+                      and kw.get("brdf") is None)
         solver = solve_twostream if two_stream else solve_nstream
         return solver(
             dtau_t, omega_t, beta_t, core["albedo"], tables, user_up,
@@ -593,8 +641,13 @@ class Engine:
         tail = (NS,) if self._polarized else ()
         rad = torch.zeros((W, len(self._rays)) + tail, dtype=ext.dtype,
                           device=ext.device)
+        thermal_kw = self._thermal_kw(core)
+        brdf_kw = {} if self._brdf is None else {
+            "brdf": self._brdf, "brdf_args": core["brdf_args"],
+        }
         for idx, tables, user_up, user_azi in self._do_groups:
-            r = self._do_solve(layers, core, tables, user_up, user_azi)
+            r = self._do_solve(layers, core, tables, user_up, user_azi,
+                               **thermal_kw, **brdf_kw)
             rad = rad.index_add(
                 1, torch.as_tensor(idx, device=ext.device), r.movedim(-1, 0)
             )
@@ -607,7 +660,7 @@ class Engine:
             for tables in tables_list:
                 _, internal = self._do_solve(
                     layers, core, tables, np.array([True]), np.array([0.0]),
-                    return_internal=True,
+                    return_internal=True, **thermal_kw,
                 )
                 ji, jo = source(
                     internal, self._limb_rows, self._do_include_ss
@@ -644,8 +697,23 @@ class Engine:
         """Fluxes [W, ntypes, nobs] of the whole wavelength batch from the
         m = 0 level fields (``engine.py:1527-1615``): upwelling and
         downwelling (2 pi sum w mu I, plus the direct beam mu0 F0 T down),
-        actinic (2 pi sum w (I+ + I-) plus F0 T) and divergence
-        (k_abs times actinic), each interpolated onto the observers."""
+        actinic (2 pi sum w (I+ + I-) plus F0 T) and divergence (k_abs
+        times actinic, less 4 pi k_abs B under thermal emission), each
+        interpolated onto the observers.
+
+        Under DO or two-stream thermal emission this solve runs in float64
+        whatever the working dtype, and its fluxes come back in that
+        dtype. Near the top of the atmosphere in a window channel the
+        thermal downwelling field is about 1e-7 of the upwelling one at the
+        same level, and the DO representation forms it as a difference of
+        homogeneous parts of the upwelling field's size: in float32 (the
+        port's and the JAX package's alike) the 80 km downwelling flux of
+        ``scenarios.thermal16_case`` was 3e-3 to 6e-3 off per element and
+        the fluxes' pressure weighting functions 0.12 to 0.63 of their
+        largest magnitude; the float64 solve holds them to 1e-6."""
+        out_dtype = core["extinction"].dtype
+        if self._thermal_do:
+            core = {k: v.double() for k, v in core.items()}
         cfg = self._config
         ext = core["extinction"]
         ssa = core["ssa"]
@@ -656,12 +724,13 @@ class Engine:
         flux = torch.zeros((W, len(cfg.flux_types), nobs), dtype=ext.dtype,
                            device=ext.device)
         two_pi = 2.0 * math.pi
+        thermal_kw = self._thermal_kw(core)
         for idx, tables, interp in self._flux_groups:
             lv, t_top, t_ground = solve_nstream_m0_levels(
                 dtau_t, omega_t, beta_t, core["albedo"], tables,
                 include_ss=self._do_include_ss,
                 chapman=self._chapman.get(tables.mu0),
-                f0=f0,
+                f0=f0, **thermal_kw,
             )
             wq = torch.as_tensor(tables.w, dtype=ext.dtype, device=ext.device)
             wmu = wq * torch.as_tensor(tables.mu, dtype=ext.dtype,
@@ -677,11 +746,15 @@ class Engine:
             )
             f_act = two_pi * torch.einsum("bnw,n->bw", ip + im, wq) + beam
             kabs_b = torch.flip(ext * (1.0 - ssa), (-1,)).movedim(0, -1)
+            f_div = kabs_b * f_act
+            if self._thermal_do:
+                f_div = f_div - 4.0 * math.pi * kabs_b * torch.flip(
+                    core["emission"], (-1,)).movedim(0, -1)
             per_type = {
                 FluxType.Upwelling: f_up,
                 FluxType.Downwelling: f_dn,
                 FluxType.Actinic: f_act,
-                FluxType.Divergence: kabs_b * f_act,
+                FluxType.Divergence: f_div,
             }
             interp_t = torch.as_tensor(
                 np.ascontiguousarray(interp), dtype=ext.dtype,
@@ -694,7 +767,7 @@ class Engine:
             flux = flux.index_copy(
                 2, torch.as_tensor(idx, device=ext.device), vals
             )
-        return flux
+        return flux.to(out_dtype)
 
     def _radiance(self, core):
         """Radiance [W, nlos] (scalar) or [W, nlos, 3] (polarized) of the
@@ -776,10 +849,9 @@ class Engine:
             core_np, self._geometry.num_altitudes,
             self._config.input_validation_mode,
         )
-        if atmosphere.surface.brdf is not None:
-            raise _not_ported(
-                "BRDF surfaces", "ROADMAP Queue 1 slice 4, BRDF surface_ops"
-            )
+        self._brdf = atmosphere.surface.brdf
+        if self._brdf is not None:
+            self._check_brdf()
         self._num_azi_eff = self._effective_num_azimuth(core_np)
         mappings = atmosphere.storage.derivative_mappings
         needs_jac = atmosphere.calculate_derivatives and (
@@ -799,6 +871,8 @@ class Engine:
                 np.any(m.d_emission) for m in mappings.values()
             ):
                 wrt.append("emission")
+            if self._brdf is not None:
+                wrt.append("brdf_args")
 
         core = core_from_reference(core_np, self._device, self._dtype)
         for k in wrt:
@@ -926,6 +1000,7 @@ class Engine:
         jleg = grads.get("leg_coeff")
         jem = grads.get("emission")
         jalb = grads.get("albedo")
+        jbrdf = grads.get("brdf_args")
         for name, m in atmosphere.storage.derivative_mappings.items():
             wf = 0.0
             if jext is not None:
@@ -954,9 +1029,15 @@ class Engine:
                 out[vname] = out[vname] + da if vname in out else da
 
         for name, m in atmosphere.surface.derivative_mappings.items():
-            if jalb is None:
+            # a BRDF's arguments map through their gradient rows
+            # (``engine.py:1964-1972``), a Lambertian albedo through its own
+            if jbrdf is not None and m.d_brdf.shape[1] == jbrdf.shape[-1]:
+                wf = np.einsum("wuk,wk->wu", jbrdf, m.d_brdf)
+            elif jalb is not None:
+                wf = jalb * m.d_brdf[:, 0][:, None]
+            else:
                 continue
-            for vname, arr, dims in emit(name, jalb * m.d_brdf[:, 0][:, None]):
+            for vname, arr, dims in emit(name, wf):
                 out[vname] = DataArray(arr, dims)
 
 

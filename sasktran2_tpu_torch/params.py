@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .atmosphere import Atmosphere
+from .rt.brdf import KERNELS as BRDF_KERNELS
 from .rt.disco import ModeTables
 
 
@@ -47,15 +48,10 @@ def mode_tables_from_reference(tables) -> ModeTables:
 def atmosphere_from_reference(ref_atmo, geometry, config) -> Atmosphere:
     """A JAX-side ``Atmosphere`` -> the port's ``Atmosphere`` on
     (``geometry``, ``config``), the port's own objects, with copies of the
-    same storage, surface, wavelengths and derivative mappings. Constituents
+    same storage, surface (a BRDF as the port's kernel of the same class,
+    with its arguments), wavelengths and derivative mappings. Constituents
     are not carried: the result is a raw-input atmosphere holding the state
     that ``ref_atmo`` holds now."""
-    if ref_atmo.surface.brdf is not None:
-        msg = (
-            "BRDF surfaces are not ported to the PyTorch engine yet "
-            "(ROADMAP Queue 1 slice 4, BRDF surface_ops)"
-        )
-        raise NotImplementedError(msg)
     wl = ref_atmo.wavelengths_nm
     atmo = Atmosphere(
         geometry, config,
@@ -70,6 +66,9 @@ def atmosphere_from_reference(ref_atmo, geometry, config) -> Atmosphere:
         getattr(dst, name)[...] = getattr(src, name)
     for name in ("albedo", "emission"):
         getattr(atmo.surface, name)[...] = getattr(ref_atmo.surface, name)
+    if ref_atmo.surface.brdf is not None:
+        atmo.surface.brdf = brdf_from_reference(ref_atmo.surface.brdf)
+        atmo.surface.brdf_args = np.array(ref_atmo.surface.brdf_args)
     for name, m in src.derivative_mappings.items():
         mine = dst.get_derivative_mapping(name)
         for field in ("d_extinction", "d_ssa", "d_emission", "d_leg_coeff",
@@ -86,3 +85,18 @@ def atmosphere_from_reference(ref_atmo, geometry, config) -> Atmosphere:
         )
         mine.interp_dim = m.interp_dim
     return atmo
+
+
+def brdf_from_reference(kernel):
+    """A JAX-side BRDF kernel (``sasktran2_tpu.rt.brdf``) -> the port's
+    kernel of the same class name in ``rt.brdf``, the members of a
+    ``WeightedKernel`` mapped in turn. Raises ``NotImplementedError`` for a
+    class the port does not have."""
+    name = type(kernel).__name__
+    cls = BRDF_KERNELS.get(name)
+    if cls is None:
+        msg = f"the port has no BRDF kernel {name}"
+        raise NotImplementedError(msg)
+    if name == "WeightedKernel":
+        return cls([brdf_from_reference(k) for k in kernel.kernels])
+    return cls()

@@ -7,8 +7,10 @@ solution with the analytic -1/k J-norms, block-tridiagonal BVP (the
 Thomas kernel) and the divided-difference post-processing multipliers,
 with every array carrying the wavelength axis last.
 
-Scope of this port: scalar radiance, Lambertian surface, solar beam
-source. Thermal sources and BRDF surfaces raise ``NotImplementedError``.
+Scope: scalar radiance; the solar beam and the thermal source (the
+Planck function exponential in optical depth across each layer, and the
+ground's emission); a Lambertian ground or a BRDF through its azimuth
+moments.
 
 Shapes: dtau/omega [P, W], beta [L, P, W], albedo/f0 [W]; radiance [U, W].
 """
@@ -34,8 +36,10 @@ from .disco import (
     KMIN,
     ModeTables,
     beam_attenuation,
+    brdf_azimuth_moments,
     build_mode_tables,
     clamp_ssa,
+    thermal_layer_fit,
 )
 
 __all__ = ["build_mode_tables", "solve_nstream", "solve_nstream_m0_levels"]
@@ -55,13 +59,17 @@ def _contract_legendre(weights, beta):
 def _mode_radiance(
     m_idx, lam, lam_sun, lam_user, parity,
     dtau, omega, beta, t_top, sbar, t_ground,
-    albedo, mu, w, mu0, user_mu, user_up, include_ss, f0,
-    with_levels=False,
+    albedo, mu, w, mu0, user_mu, user_up, include_ss, f0, thermal,
+    with_levels=False, surface_ops=None,
 ):
     """One azimuth mode, wavelength-minor. ``m_idx`` is the mode number;
     lam [L, N], lam_sun [L], lam_user [L, U] and parity [L] are its
-    tables. Returns radiance [U, W], and with ``with_levels`` also the
-    stream fields at the layer tops and bottoms, a dict of [P, N, W]."""
+    tables. ``thermal`` is None or (b0, b1, surface emission) from
+    ``disco.thermal_layer_fit``; ``surface_ops`` is None (Lambertian) or
+    the mode's BRDF azimuth moments in lane layout (rho_stream [N, N, W],
+    rho_user [U, N, W], rho_sun_stream [N, W], rho_sun_user [U, W]).
+    Returns radiance [U, W], and with ``with_levels`` also the stream
+    fields at the layer tops and bottoms, a dict of [P, N, W]."""
     dt = dtau.dtype
     dev = dtau.device
 
@@ -99,31 +107,45 @@ def _mode_radiance(
     is_m0 = 1.0 if m_idx == 0 else 0.0
     two_minus_delta = 1.0 if m_idx == 0 else 2.0
 
-    # --- beam source vectors ---------------------------------------------
+    # --- particular-solution sources --------------------------------------
+    wq = const(w)[None, :, None]
+
+    def greens(qp, qm):
+        # c_minus = +k <Q, [X; Y]>, c_plus = -k <Q, [Y; X]> (analytic -1/k
+        # J-norms)
+        proj_v = torch.sum(
+            (qp * wq)[..., None, :] * x + (qm * wq)[..., None, :] * y, dim=-3
+        )                                                   # [P, A, W]
+        proj_u = torch.sum(
+            (qp * wq)[..., None, :] * y + (qm * wq)[..., None, :] * x, dim=-3
+        )
+        return k * proj_v, -k * proj_u
+
+    # each source: (c_minus, c_plus, amplitude [P, 1, W], decay rate in
+    # optical depth [P, 1, W], kind). The solar beam, and at m = 0 the
+    # thermal source b0 exp(-b1 tau) (isotropic, so it has no m > 0 part)
     cq = two_minus_delta * omega / (4.0 * math.pi)          # [P, W]
     qp = cq[:, None, :] * _contract_legendre(
         (parity * lam_sun)[:, None] * lam, beta
     )                                                       # [P, N, W]
     qm = cq[:, None, :] * _contract_legendre(lam_sun[:, None] * lam, beta)
-    wq = const(w)[None, :, None]
-
-    # c_minus = +k <Q, [X; Y]>, c_plus = -k <Q, [Y; X]> (analytic -1/k
-    # J-norms)
-    proj_v = torch.sum(
-        (qp * wq)[..., None, :] * x + (qm * wq)[..., None, :] * y, dim=-3
-    )                                                       # [P, A, W]
-    proj_u = torch.sum(
-        (qp * wq)[..., None, :] * y + (qm * wq)[..., None, :] * x, dim=-3
-    )
-    c_m = k * proj_v
-    c_p = -k * proj_u
-    amp = (t_top * f0[None, :])[:, None, :]                # [P, 1, W]
-    decay = sbar[:, None, :]
+    sources = [(*greens(qp, qm), (t_top * f0[None, :])[:, None, :],
+                sbar[:, None, :], "beam")]
+    thermal_m = thermal if (thermal is not None and m_idx == 0) else None
+    if thermal_m is not None:
+        b0, b1, _ = thermal_m
+        q_th = (1.0 - omega)[:, None, :].expand(P, N, -1)   # [P, N, W]
+        sources.append(
+            (*greens(q_th, q_th), b0[:, None, :], b1[:, None, :], "thermal")
+        )
 
     # --- particular boundary values ----------------------------------------
     d1 = dtau[:, None, :]
-    phi_mb = c_m * amp * ediff(decay, k, d1)
-    phi_pt = -c_p * amp * ediff(torch.zeros_like(k), k + decay, d1)
+    phi_mb = 0.0
+    phi_pt = 0.0
+    for c_m, c_p, amp, decay, _ in sources:
+        phi_mb = phi_mb + c_m * amp * ediff(decay, k, d1)
+        phi_pt = phi_pt - c_p * amp * ediff(torch.zeros_like(k), k + decay, d1)
 
     def project(mat, vec):
         # [P, N, A, W] x [P, A, W] -> [P, N, W]
@@ -139,16 +161,33 @@ def _mode_radiance(
     xe = x * e[:, None, :, :]
     ye = y * e[:, None, :, :]
 
-    # Lambertian ground: rank-one reflection 2 a w_j mu_j at m = 0. The
-    # BVP drive is not gated by include_ss (beam -> ground -> rescatter is
+    # Ground reflection operator: the Lambertian rank-one 2 a w_j mu_j at
+    # m = 0, or the BRDF's azimuth moments 2 pi rho_m w_j mu_j. The BVP
+    # drive is not gated by include_ss (beam -> ground -> rescatter is
     # multiple scatter); include_ss gates only the user-direction term.
     wmu = const(w * mu)
-    ones_n = torch.ones((N, 1, 1), dtype=dt, device=dev)
-    refl = 2.0 * is_m0 * albedo[None, None, :] * wmu[None, :, None] * ones_n
-    ground_sun = is_m0 * albedo * mu0 * t_ground * f0 / math.pi  # [W]
-    ground_direct = ground_sun[None, :] * torch.ones(
-        (N, 1), dtype=dt, device=dev
-    )                                                       # [N, W]
+    ground_thermal = (
+        (1.0 - albedo) * thermal_m[2] if thermal_m is not None else None
+    )                                                       # [W]
+    if surface_ops is None:
+        ones_n = torch.ones((N, 1, 1), dtype=dt, device=dev)
+        refl = (2.0 * is_m0 * albedo[None, None, :] * wmu[None, :, None]
+                * ones_n)                                   # [N, N, W]
+        ground_sun = is_m0 * albedo * mu0 * t_ground * f0 / math.pi  # [W]
+        ground_direct = ground_sun if ground_thermal is None else (
+            ground_sun + ground_thermal
+        )
+        ground_direct = ground_direct[None, :] * torch.ones(
+            (N, 1), dtype=dt, device=dev
+        )                                                   # [N, W]
+    else:
+        refl = 2.0 * math.pi * surface_ops["rho_stream"] * wmu[None, :, None]
+        sun_in = (mu0 * t_ground * f0)[None, :]             # [1, W]
+        ground_direct = two_minus_delta * surface_ops["rho_sun_stream"] * (
+            sun_in
+        )                                                   # [N, W]
+        if ground_thermal is not None:
+            ground_direct = ground_direct + ground_thermal[None, :]
 
     idx = torch.arange(P, device=dev)
     first_m = (idx == 0)[:, None, None, None]
@@ -227,12 +266,6 @@ def _mode_radiance(
     pv_dn = user_proj(lupar, tt_v)
     pu_dn = user_proj(lupar, tt_u)
 
-    cbeam = two_minus_delta * omega[:, None, :] / (4.0 * math.pi)  # [P,1,W]
-    beam_up = cbeam * _contract_legendre(
-        lam_user * (parity * lam_sun)[:, None], beta
-    )                                                       # [P, U, W]
-    beam_dn = cbeam * _contract_legendre(lam_sun[:, None] * lam_user, beta)
-
     cu = (1.0 / const(user_mu))[None, :, None, None]        # [1, U, 1, 1]
     du = dtau[:, None, None, :]                             # [P, 1, 1, W]
     ku = k[:, None, :, :]                                   # [P, 1, A, W]
@@ -246,33 +279,49 @@ def _mode_radiance(
     s_up = torch.sum(pv_up * lu_c * efwd_k + pu_up * mu_c * erev_k, dim=-2)
     s_dn = torch.sum(pv_dn * lu_c * erev_k + pu_dn * mu_c * efwd_k, dim=-2)
 
-    sbu = decay[:, None, :, :]                              # [P, 1, 1, W]
-    ampu = amp[:, None, :, :]
-    zero_s = torch.zeros_like(sbu)
-    efwd_s = ediff(zero_s, sbu + cu, du) * cu
-    erev_s = ediff(sbu, cu + zero_s, du) * cu
-    green_minus_up = ddiff2(zero, sbu + cu, ku + cu, du) * cu
-    green_plus_up = (efwd_s - ediff(ku + sbu, sbu + cu, du) * cu) / (ku + sbu)
-    green_minus_dn = ddiff2(ku, cu + zero, sbu + zero, du) * cu
-    green_plus_dn = (
-        erev_s - ediff(sbu, ku + sbu + cu, du) * cu
-    ) / (ku + sbu)
+    for c_m, c_p, amp, decay, kind in sources:
+        sbu = decay[:, None, :, :]                          # [P, 1, 1, W]
+        ampu = amp[:, None, :, :]
+        zero_s = torch.zeros_like(sbu)
+        efwd_s = ediff(zero_s, sbu + cu, du) * cu
+        erev_s = ediff(sbu, cu + zero_s, du) * cu
+        green_minus_up = ddiff2(zero, sbu + cu, ku + cu, du) * cu
+        green_plus_up = (
+            efwd_s - ediff(ku + sbu, sbu + cu, du) * cu
+        ) / (ku + sbu)
+        green_minus_dn = ddiff2(ku, cu + zero, sbu + zero, du) * cu
+        green_plus_dn = (
+            erev_s - ediff(sbu, ku + sbu + cu, du) * cu
+        ) / (ku + sbu)
 
-    cmu = c_m[:, None, :, :]
-    cpu = c_p[:, None, :, :]
-    s_up = s_up + torch.sum(
-        pv_up * cmu * ampu * green_minus_up
-        - pu_up * cpu * ampu * green_plus_up,
-        dim=-2,
-    )
-    s_dn = s_dn + torch.sum(
-        pv_dn * cmu * ampu * green_minus_dn
-        - pu_dn * cpu * ampu * green_plus_dn,
-        dim=-2,
-    )
-    if include_ss:
-        s_up = s_up + beam_up * ampu[..., 0, :] * efwd_s[..., 0, :]
-        s_dn = s_dn + beam_dn * ampu[..., 0, :] * erev_s[..., 0, :]
+        cmu = c_m[:, None, :, :]
+        cpu = c_p[:, None, :, :]
+        s_up = s_up + torch.sum(
+            pv_up * cmu * ampu * green_minus_up
+            - pu_up * cpu * ampu * green_plus_up,
+            dim=-2,
+        )
+        s_dn = s_dn + torch.sum(
+            pv_dn * cmu * ampu * green_minus_dn
+            - pu_dn * cpu * ampu * green_plus_dn,
+            dim=-2,
+        )
+        if kind == "beam":
+            if include_ss:
+                cbeam = two_minus_delta * omega[:, None, :] / (4.0 * math.pi)
+                beam_up = cbeam * _contract_legendre(
+                    lam_user * (parity * lam_sun)[:, None], beta
+                )                                           # [P, U, W]
+                beam_dn = cbeam * _contract_legendre(
+                    lam_sun[:, None] * lam_user, beta
+                )
+                s_up = s_up + beam_up * ampu[..., 0, :] * efwd_s[..., 0, :]
+                s_dn = s_dn + beam_dn * ampu[..., 0, :] * erev_s[..., 0, :]
+        else:
+            # the thermal source's own emission, isotropic
+            direct = (1.0 - omega)[:, None, :] * ampu[..., 0, :]
+            s_up = s_up + direct * efwd_s[..., 0, :]
+            s_dn = s_dn + direct * erev_s[..., 0, :]
 
     # attenuate + sum layers
     od_user = dtau[:, None, :] * cu[0, :, :, 0][None]      # [P, U, W]
@@ -290,14 +339,25 @@ def _mode_radiance(
         + torch.sum(x[P - 1] * coeff_m[P - 1][None], dim=-2)
         + torch.sum(y[P - 1] * phi_mb[P - 1][None], dim=-2)
     )                                                       # [N, W]
-    refl_sum = 2.0 * is_m0 * albedo * torch.sum(
-        wmu[:, None] * i_minus_ground, dim=0
-    )                                                       # [W]
-    ground_up = refl_sum[None, :] * torch.ones(
-        (len(user_mu), 1), dtype=dt, device=dev
-    )
-    if include_ss:
-        ground_up = ground_up + ground_sun[None, :]
+    if surface_ops is None:
+        refl_sum = 2.0 * is_m0 * albedo * torch.sum(
+            wmu[:, None] * i_minus_ground, dim=0
+        )                                                   # [W]
+        ground_up = refl_sum[None, :] * torch.ones(
+            (len(user_mu), 1), dtype=dt, device=dev
+        )
+        if include_ss:
+            ground_up = ground_up + ground_sun[None, :]
+    else:
+        ground_up = 2.0 * math.pi * torch.einsum(
+            "ujw,j,jw->uw", surface_ops["rho_user"], wmu, i_minus_ground
+        )
+        if include_ss:
+            ground_up = ground_up + (
+                two_minus_delta * surface_ops["rho_sun_user"] * sun_in
+            )
+    if ground_thermal is not None:
+        ground_up = ground_up + ground_thermal[None, :]
     total_od_user = torch.sum(od_user, dim=0)
     rad_up = rad_up + torch.exp(-total_od_user) * ground_up
     rad = torch.where(user_up[:, None], rad_up, rad_dn)
@@ -329,28 +389,22 @@ def solve_nstream(
 
     dtau/omega [P, W] (TOA first); beta [L, P, W]; albedo [W]; ``tables``
     from ``rt.disco.build_mode_tables``; ``chapman`` an optional [P, P]
-    pseudo-spherical chapman matrix. Returns radiance [U, W]; with
+    pseudo-spherical chapman matrix. ``thermal_b0`` / ``thermal_b1_bottom``
+    [P, W] are the Planck source at each layer's top and bottom and
+    ``surface_emission`` [W] the ground's (thermal emission, m = 0 only).
+    ``brdf`` (a kernel of ``rt.brdf``) with ``brdf_args`` [W, nargs]
+    replaces the Lambertian ground by that BRDF's azimuth moments
+    (``disco.brdf_azimuth_moments``). Returns radiance [U, W]; with
     ``return_internal`` also the dict that ``rt.do_source`` evaluates
     along rays: the level fields (``levels``, each [M, P, N, W]), the
     mode tables that were used, the clamped omega, beta, the beam's
-    t_top and sbar, dtau, the quadrature weights and f0.
+    t_top and sbar, dtau, the quadrature weights, f0 and the thermal
+    layer fit (None without thermal sources).
 
     The azimuth modes run as a Python loop; under autograd each mode is
     checkpointed, so backward recomputes one mode at a time instead of
     holding every mode's [P, 2N, 2N, W] BVP blocks.
     """
-    if thermal_b0 is not None or thermal_b1_bottom is not None or (
-        surface_emission is not None
-    ):
-        msg = (
-            "thermal DO sources are not ported yet "
-            "(ROADMAP Queue 1: emission sources)"
-        )
-        raise NotImplementedError(msg)
-    if brdf is not None or brdf_args is not None:
-        msg = "BRDF surfaces are not ported yet (ROADMAP Queue 1: BRDF)"
-        raise NotImplementedError(msg)
-
     dt = dtau.dtype
     dev = dtau.device
 
@@ -381,6 +435,18 @@ def solve_nstream(
             albedo.shape
         )
 
+    thermal = None
+    if thermal_b0 is not None or thermal_b1_bottom is not None:
+        thermal = thermal_layer_fit(thermal_b0, thermal_b1_bottom, dtau,
+                                    surface_emission, albedo)
+    surface_ops = None
+    if brdf is not None:
+        mom = brdf_azimuth_moments(
+            brdf, brdf_args, const(mu), const(user_mu), mu0, np.arange(M),
+        )
+        # [M, W, ...] -> the lane layout [M, ..., W]
+        surface_ops = {k: v.movedim(1, -1) for k, v in mom.items()}
+
     U = len(user_mu)
     W = dtau.shape[-1]
     rad = torch.zeros((U, W), dtype=dt, device=dev)
@@ -394,7 +460,10 @@ def solve_nstream(
             const(tables.parity[m, :luse]),
             dtau, omega, beta, t_top, sbar, t_ground,
             albedo, mu, w, mu0, user_mu, user_up_t, include_ss, f0,
-            return_internal,
+            thermal, return_internal,
+            None if surface_ops is None else {
+                k: v[m] for k, v in surface_ops.items()
+            },
         )
         if torch.is_grad_enabled():
             r_m = checkpoint(_mode_radiance, *args, use_reentrant=False)
@@ -421,6 +490,7 @@ def solve_nstream(
         "dtau": dtau,
         "w_quad": w,
         "f0": f0,
+        "thermal": thermal,
     }
     return rad, internal
 
@@ -449,14 +519,6 @@ def solve_nstream_m0_levels(
     output of an engine call depends on it, and each output's Jacobian
     row would recompute it.
     """
-    if thermal_b0 is not None or thermal_b1_bottom is not None or (
-        surface_emission is not None
-    ):
-        msg = (
-            "thermal DO sources are not ported yet "
-            "(ROADMAP Queue 1 slice 4, thermal DO sources)"
-        )
-        raise NotImplementedError(msg)
     dt = dtau.dtype
     dev = dtau.device
 
@@ -476,6 +538,10 @@ def solve_nstream_m0_levels(
         f0 = torch.as_tensor(f0, dtype=dt, device=dev).broadcast_to(
             albedo.shape
         )
+    thermal = None
+    if thermal_b0 is not None or thermal_b1_bottom is not None:
+        thermal = thermal_layer_fit(thermal_b0, thermal_b1_bottom, dtau,
+                                    surface_emission, albedo)
     user_mu = np.asarray(tables.user_mu)
     user_up = torch.ones(len(user_mu), dtype=torch.bool, device=dev)
     args = (
@@ -485,7 +551,7 @@ def solve_nstream_m0_levels(
         const(tables.lam_user[0, :luse]),
         const(tables.parity[0, :luse]),
         dtau, omega, beta, t_top, sbar, t_ground,
-        albedo, mu, w, mu0, user_mu, user_up, include_ss, f0,
+        albedo, mu, w, mu0, user_mu, user_up, include_ss, f0, thermal,
         True,
     )
     _, levels = _mode_radiance(*args)

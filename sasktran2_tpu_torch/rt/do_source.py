@@ -149,7 +149,8 @@ def ms_source_along_rays_minor(internal, rows, include_ss: bool):
     ``internal`` comes from ``disco_nstream.solve_nstream(...,
     return_internal=True)`` (level fields [M, P, N, W]); ``rows`` from
     ``build_layer_rows``. ``include_ss`` adds the single scatter of the
-    attenuated direct beam. Padded segments get zero (the reference
+    attenuated direct beam; a solve with thermal sources adds their
+    isotropic (1 - omega) B at each endpoint. Padded segments get zero (the reference
     evaluates them in layer 0; the line-of-sight integral masks both).
     """
     levels = internal["levels"]
@@ -197,6 +198,14 @@ def ms_source_along_rays_minor(internal, rows, include_ss: bool):
         amp = (internal["t_top"] * internal["f0"][None, :])[:, None, :]
         decay = (internal["sbar"] * internal["dtau"])[:, None, :]
         y = y + (coef @ c_beam) * amp * torch.exp(-decay * frac)
+    thermal = internal.get("thermal")
+    if thermal is not None:
+        # the isotropic thermal source (1 - omega) b0 exp(-b1 tau) at the
+        # endpoint's depth in its layer
+        b0, b1, _ = thermal
+        y = y + ((1.0 - omega) * b0)[:, None, :] * torch.exp(
+            -(b1 * internal["dtau"])[:, None, :] * frac
+        )
     flat = torch.cat([y.reshape(P * J, W), torch.zeros_like(y[0, :1])])
     R, S = rows["row_in"].shape
 

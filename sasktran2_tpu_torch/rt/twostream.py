@@ -6,7 +6,8 @@ homogeneous solutions (no eigensolver) and a pivot-free 2x2 block-Thomas
 sweep over the layers for the boundary-value problem. Same physics as the
 N-stream solver (same mode tables, Green's-function particular solution,
 post-processing multipliers) at one quadrature point per hemisphere,
-scalar radiance, Lambertian surface, solar beam source.
+scalar radiance, Lambertian surface, the solar beam and the thermal
+source.
 
 The layer sweeps (``lax.scan`` in the reference) are Python loops over
 [W] tensors: there is no TPU kernel behind them to port.
@@ -28,6 +29,7 @@ from .disco import (
     beam_attenuation,
     build_mode_tables,
     clamp_ssa,
+    thermal_layer_fit,
 )
 
 __all__ = ["build_mode_tables", "solve_twostream"]
@@ -36,10 +38,11 @@ __all__ = ["build_mode_tables", "solve_twostream"]
 def _mode_radiance(
     m_idx, lam, lam_sun, lam_user, parity,
     dtau, omega, beta, t_top, sbar, t_ground,
-    albedo, mu1, w1, mu0, user_mu, user_up, include_ss, f0,
+    albedo, mu1, w1, mu0, user_mu, user_up, include_ss, f0, thermal,
 ):
-    """One azimuth mode: lam/lam_sun/parity [L], lam_user [L, U] (numpy).
-    Returns radiance [U, W]."""
+    """One azimuth mode: lam/lam_sun/parity [L], lam_user [L, U] (numpy);
+    ``thermal`` None or (b0, b1, surface emission) from
+    ``disco.thermal_layer_fit``. Returns radiance [U, W]."""
     dt, dev = dtau.dtype, dtau.device
 
     def const(x):
@@ -65,15 +68,27 @@ def _mode_radiance(
     is_m0 = 1.0 if m_idx == 0 else 0.0
     two_minus_delta = 1.0 if m_idx == 0 else 2.0
 
-    # --- particular (Green's function) beam source ---------------------
+    # --- particular (Green's function) sources --------------------------
+    # (c_minus, c_plus, amplitude, decay rate in optical depth, kind): the
+    # solar beam, and at m = 0 the isotropic thermal source b0 exp(-b1 tau)
     cq = two_minus_delta * omega / (4.0 * math.pi)
     qp = cq * torch.einsum("l,lpw->pw", const(lam * parity * lam_sun), beta)
     qm = cq * torch.einsum("l,lpw->pw", const(lam * lam_sun), beta)
-    c_m = k * (w1 * (qp * x + qm * y))
-    c_p = -k * (w1 * (qp * y + qm * x))
-    amp = t_top * f0[None, :]
-    phi_mb = c_m * amp * ediff(sbar, k, dtau)     # phi^- at layer bottom
-    phi_pt = -c_p * amp * ediff(torch.zeros_like(k), k + sbar, dtau)
+    sources = [(k * (w1 * (qp * x + qm * y)), -k * (w1 * (qp * y + qm * x)),
+                t_top * f0[None, :], sbar, "beam")]
+    thermal_m = thermal if (thermal is not None and m_idx == 0) else None
+    if thermal_m is not None:
+        b0, b1, _ = thermal_m
+        q_th = 1.0 - omega
+        sources.append((k * (w1 * (q_th * x + q_th * y)),
+                        -k * (w1 * (q_th * y + q_th * x)), b0, b1, "thermal"))
+    phi_mb = 0.0                                  # phi^- at layer bottom
+    phi_pt = 0.0                                  # phi^+ at layer top
+    for c_m, c_p, amp, decay, _ in sources:
+        phi_mb = phi_mb + c_m * amp * ediff(decay, k, dtau)
+        phi_pt = phi_pt - c_p * amp * ediff(
+            torch.zeros_like(k), k + decay, dtau
+        )
 
     ip_plus_top = y * phi_pt
     ip_minus_top = x * phi_pt
@@ -84,6 +99,11 @@ def _mode_radiance(
     refl = 2.0 * is_m0 * albedo * (w1 * mu1)      # [W]
     ground_sun = is_m0 * albedo * mu0 * t_ground * f0 / math.pi
     ground_direct = ground_sun if include_ss else 0.0 * ground_sun
+    ground_thermal = (
+        (1.0 - albedo) * thermal_m[2] if thermal_m is not None else None
+    )
+    if ground_thermal is not None:
+        ground_direct = ground_direct + ground_thermal
 
     e = torch.exp(-k * dtau)
     xe = x * e
@@ -148,29 +168,34 @@ def _mode_radiance(
     s_up = pv_up * lu_c * efwd_k + pu_up * mu_c * erev_k
     s_dn = pv_dn * lu_c * erev_k + pu_dn * mu_c * efwd_k
 
-    sbu = sbar[None]
-    ampu = amp[None]
-    efwd_s = ediff(zero, sbu + c_user, du) * c_user
-    erev_s = ediff(sbu, c_user + zero, du) * c_user
-    green_minus_up = ddiff2(zero, sbu + c_user, ku + c_user, du) * c_user
-    green_plus_up = (
-        efwd_s - ediff(ku + sbu, sbu + c_user, du) * c_user
-    ) / (ku + sbu)
-    green_minus_dn = ddiff2(ku, c_user + zero, sbu, du) * c_user
-    green_plus_dn = (
-        erev_s - ediff(sbu, ku + sbu + c_user, du) * c_user
-    ) / (ku + sbu)
-    cmu = c_m[None]
-    cpu = c_p[None]
-    s_up = s_up + (
-        pv_up * cmu * ampu * green_minus_up - pu_up * cpu * ampu * green_plus_up
-    )
-    s_dn = s_dn + (
-        pv_dn * cmu * ampu * green_minus_dn - pu_dn * cpu * ampu * green_plus_dn
-    )
-    if include_ss:
-        s_up = s_up + beam_up * ampu * efwd_s
-        s_dn = s_dn + beam_dn * ampu * erev_s
+    for c_m, c_p, amp, decay, kind in sources:
+        sbu = decay[None]
+        ampu = amp[None]
+        efwd_s = ediff(zero, sbu + c_user, du) * c_user
+        erev_s = ediff(sbu, c_user + zero, du) * c_user
+        green_minus_up = ddiff2(zero, sbu + c_user, ku + c_user, du) * c_user
+        green_plus_up = (
+            efwd_s - ediff(ku + sbu, sbu + c_user, du) * c_user
+        ) / (ku + sbu)
+        green_minus_dn = ddiff2(ku, c_user + zero, sbu, du) * c_user
+        green_plus_dn = (
+            erev_s - ediff(sbu, ku + sbu + c_user, du) * c_user
+        ) / (ku + sbu)
+        cmu = c_m[None]
+        cpu = c_p[None]
+        s_up = s_up + (pv_up * cmu * ampu * green_minus_up
+                       - pu_up * cpu * ampu * green_plus_up)
+        s_dn = s_dn + (pv_dn * cmu * ampu * green_minus_dn
+                       - pu_dn * cpu * ampu * green_plus_dn)
+        if kind == "beam":
+            if include_ss:
+                s_up = s_up + beam_up * ampu * efwd_s
+                s_dn = s_dn + beam_dn * ampu * erev_s
+        else:
+            # the thermal source's own emission, isotropic
+            one_minus_om = (1.0 - omega)[None]
+            s_up = s_up + one_minus_om * ampu * efwd_s
+            s_dn = s_dn + one_minus_om * ampu * erev_s
 
     # attenuate and sum the layers
     od_user = du * c_user                        # [U, P, W]
@@ -189,6 +214,8 @@ def _mode_radiance(
         + y[P - 1] * phi_mb[P - 1]
     )
     ground_up = (refl * i_minus_ground)[None, :]
+    if ground_thermal is not None:
+        ground_up = ground_up + ground_thermal[None, :]
     if include_ss:
         ground_up = ground_up + ground_sun[None, :]
     total_od_user = torch.sum(od_user, dim=1)
@@ -257,12 +284,16 @@ def solve_twostream(
     chapman=None,
     num_azimuth: int | None = None,
     f0=None,
+    thermal_b0=None,
+    thermal_b1_bottom=None,
+    surface_emission=None,
 ):
     """Two-stream plane-parallel DO radiance, wavelength-minor.
 
     dtau/omega [P, W] (TOA first); beta [L, P, W]; albedo [W]; ``tables``
     from ``rt.disco.build_mode_tables(2, ...)``; ``chapman`` an optional
-    [P, P] pseudo-spherical chapman matrix. Returns radiance [U, W].
+    [P, P] pseudo-spherical chapman matrix; the thermal sources as in
+    ``disco_nstream.solve_nstream``. Returns radiance [U, W].
     """
     if len(tables.mu) != 1:
         msg = "solve_twostream requires nstr = 2 tables"
@@ -291,6 +322,11 @@ def solve_twostream(
             albedo.shape
         )
 
+    thermal = None
+    if thermal_b0 is not None or thermal_b1_bottom is not None:
+        thermal = thermal_layer_fit(thermal_b0, thermal_b1_bottom, dtau,
+                                    surface_emission, albedo)
+
     rad = 0.0
     for m in range(M):
         r_m = _mode_radiance(
@@ -300,7 +336,7 @@ def solve_twostream(
             tables.lam_user[m, :luse, :],
             tables.parity[m, :luse],
             dtau, omega, beta, t_top, sbar, t_ground,
-            albedo, mu1, w1, mu0, user_mu, user_up, include_ss, f0,
+            albedo, mu1, w1, mu0, user_mu, user_up, include_ss, f0, thermal,
         )
         # the reference's relative-azimuth convention: cos(m (pi - dphi))
         az = torch.cos(m * (math.pi - user_azimuth))[:, None]

@@ -1,8 +1,9 @@
 """The engine cases that ``chip_smoke.py`` drives and that
 ``tools/make_torch_golden.py`` computes reference values for. All of them
-use a US76 + Rayleigh + Lambertian 0.3 atmosphere with weighting
-functions on, 101 altitudes from 0 to 100 km (P = 100 layers),
-cos_sza = 0.6, and the 1024-point grid ``np.linspace(280, 800, 1024)`` nm.
+have weighting functions on, 101 altitudes from 0 to 100 km (P = 100
+layers) and cos_sza = 0.6; all but the thermal ones use a US76 + Rayleigh
++ Lambertian 0.3 atmosphere and the 1024-point grid
+``np.linspace(280, 800, 1024)`` nm.
 
 * ``smoke_case``: 16 streams, discrete-ordinates single and multiple
   scatter, plane-parallel geometry, four ground-viewing rays
@@ -37,6 +38,20 @@ cos_sza = 0.6, and the 1024-point grid ``np.linspace(280, 800, 1024)`` nm.
   ``chip_smoke.py`` near half its time limit (PERF.md section 4 has the
   arithmetic); streams, layers and wavelengths are not cut.
 
+* ``brdf16_case``: ``smoke_case`` over the MODIS surface of
+  ``tests/test_brdf.py:72`` (f_iso 0.25, f_vol 0.15, f_geo 0.05) in place
+  of the Lambertian 0.3, with its three weighting functions. A BRDF turns
+  the azimuth-mode truncation off, so all 16 modes run.
+* ``thermal16_case``: night-side thermal infrared: ``THERMAL_WAVELENGTHS``
+  (4,000-15,000 nm), the solar beam off, US76 + Rayleigh + an absorber of
+  constant VMR 4e-4 with a smooth tabulated cross section from 1e-28 to
+  1e-24 m^2 (``absorber_cross_section``; nadir optical depth about 0.01 to
+  90) + ``ThermalEmission`` + ``SurfaceThermalEmission(288.15, 0.98)`` +
+  Lambertian 0.02, DO emission, on ``smoke_case``'s four rays plus
+  ``flux16_case``'s six observers and four flux types.
+* ``thermallimb16_case``: the same atmosphere on ``limb_case``'s 20 limb
+  rays, with DO single scatter (DO emission requires it).
+
 ``POL16_SOLVER_*`` is the solver-level case of the 16-stream polarized
 check: the JAX package cannot compile its polarized engine at 16 streams
 on the CPU, so ``tools/make_torch_golden.py`` stores the inputs and
@@ -59,6 +74,9 @@ GOLDEN_2STR_PATH = os.path.join(DATA, "golden_2str.npz")
 GOLDEN_FLUX16_PATH = os.path.join(DATA, "golden_flux16.npz")
 GOLDEN_POL4_PATH = os.path.join(DATA, "golden_pol4.npz")
 GOLDEN_POL16_SOLVER_PATH = os.path.join(DATA, "golden_pol16_solver.npz")
+GOLDEN_BRDF16_PATH = os.path.join(DATA, "golden_brdf16.npz")
+GOLDEN_THERMAL16_PATH = os.path.join(DATA, "golden_thermal16.npz")
+GOLDEN_THERMALLIMB16_PATH = os.path.join(DATA, "golden_thermallimb16.npz")
 LIMB_TANGENTS_M = np.linspace(10000.0, 80000.0, 20)
 LIMBPOL_NUM_LOS = 3
 FLUX_ALTITUDES_M = (0.0, 5000.0, 10000.0, 20000.0, 40000.0, 80000.0)
@@ -71,6 +89,27 @@ POL16_SOLVER_NUM_AZIMUTH = 3
 
 def smoke_wavelengths():
     return np.linspace(280.0, 800.0, NUM_WAVELENGTHS)
+
+
+def thermal_wavelengths():
+    """The thermal cases' grid: 1024 points from 4,000 to 15,000 nm."""
+    return np.linspace(4000.0, 15000.0, NUM_WAVELENGTHS)
+
+
+def absorber_cross_section():
+    """(wavelengths_nm, cross_section_m2) of the thermal cases' absorber:
+    a smooth spectrum on a 20 nm grid over 3,900-15,100 nm, the sum of
+    eight sinusoids of random amplitude and phase (numpy seed 0) scaled so
+    that log10 of the cross section spans -28 to -24."""
+    rng = np.random.default_rng(0)
+    wl = np.linspace(3900.0, 15100.0, 561)
+    x = (wl - wl[0]) / (wl[-1] - wl[0])
+    s = sum(
+        rng.normal() / f * np.sin(2.0 * np.pi * f * x + rng.uniform(0.0, 6.3))
+        for f in range(1, 9)
+    )
+    s = (s - s.min()) / (s.max() - s.min())
+    return wl, 10.0 ** (-28.0 + 4.0 * s)
 
 
 def smoke_case(sk, dtype: str, wavelengths_nm, num_stokes=1, nstr=16):
@@ -103,6 +142,24 @@ def _atmosphere(sk, config, geometry, wavelengths_nm):
     sk.climatology.us76.add_us76_standard_atmosphere(atmo)
     atmo["rayleigh"] = sk.constituent.Rayleigh()
     atmo["surface"] = sk.constituent.LambertianSurface(0.3)
+    return atmo
+
+
+def _thermal_atmosphere(sk, config, geometry, wavelengths_nm):
+    atmo = sk.Atmosphere(geometry, config, wavelengths_nm=wavelengths_nm)
+    sk.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = sk.constituent.Rayleigh()
+    xs_wl, xs = absorber_cross_section()
+    alts = geometry.altitudes()
+    atmo["absorber"] = sk.constituent.VMRAltitudeAbsorber(
+        sk.optical.TabulatedCrossSectionAbsorber(xs_wl, xs), alts,
+        np.full(len(alts), 4e-4),
+    )
+    atmo["thermal"] = sk.constituent.ThermalEmission()
+    atmo["surface_emission"] = sk.constituent.SurfaceThermalEmission(
+        288.15, 0.98)
+    atmo["surface"] = sk.constituent.LambertianSurface(0.02)
+    atmo.storage.solar_irradiance[:] = 0.0          # night side
     return atmo
 
 
@@ -195,6 +252,64 @@ def limbpol16_case(sk, dtype: str, wavelengths_nm):
     return limb_case(
         sk, dtype, wavelengths_nm, num_stokes=3,
         tangents_m=np.linspace(10000.0, 80000.0, LIMBPOL_NUM_LOS),
+    )
+
+
+def brdf16_case(sk, dtype: str, wavelengths_nm):
+    """``smoke_case`` over a MODIS BRDF surface."""
+    config, geometry, viewing, atmo = smoke_case(sk, dtype, wavelengths_nm)
+    atmo["surface"] = sk.constituent.MODIS(0.25, 0.15, 0.05)
+    return config, geometry, viewing, atmo
+
+
+def thermal16_case(sk, dtype: str, wavelengths_nm):
+    """(config, geometry, viewing, atmosphere) of the 16-stream thermal
+    infrared case with fluxes, built from ``sk`` as ``smoke_case`` is."""
+    config = sk.Config(
+        num_streams=16,
+        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        emission_source=sk.EmissionSource.DiscreteOrdinates,
+        num_singlescatter_moments=16,
+        flux_types=(
+            sk.FluxType.Upwelling, sk.FluxType.Downwelling,
+            sk.FluxType.Actinic, sk.FluxType.Divergence,
+        ),
+        dtype=dtype,
+    )
+    geometry = _geometry(sk, sk.GeometryType.PlaneParallel)
+    viewing = sk.ViewingGeometry()
+    for mu in (0.4, 0.6, 0.8, 1.0):
+        viewing.add_ray(sk.GroundViewingSolar(
+            cos_sza=0.6, relative_azimuth=0.5, cos_viewing_zenith=mu,
+            observer_altitude_m=200000.0,
+        ))
+    for alt in FLUX_ALTITUDES_M:
+        viewing.add_flux_observer(sk.FluxObserverSolar(0.6, alt))
+    return config, geometry, viewing, _thermal_atmosphere(
+        sk, config, geometry, wavelengths_nm
+    )
+
+
+def thermallimb16_case(sk, dtype: str, wavelengths_nm):
+    """(config, geometry, viewing, atmosphere) of the 16-stream thermal
+    limb scan: ``limb_case``'s geometry and rays, ``thermal16_case``'s
+    atmosphere."""
+    config = sk.Config(
+        num_streams=16,
+        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        emission_source=sk.EmissionSource.DiscreteOrdinates,
+        num_singlescatter_moments=16,
+        num_do_sza=2,
+        dtype=dtype,
+    )
+    geometry = _geometry(sk, sk.GeometryType.Spherical)
+    viewing = sk.ViewingGeometry()
+    for talt in LIMB_TANGENTS_M:
+        viewing.add_ray(sk.TangentAltitudeSolar(float(talt), 0.4, 2e5, 0.6))
+    return config, geometry, viewing, _thermal_atmosphere(
+        sk, config, geometry, wavelengths_nm
     )
 
 

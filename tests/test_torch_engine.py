@@ -6,9 +6,10 @@ streams, 20 altitudes and 3 wavelengths, in plane-parallel geometry
 (constituent atmosphere, Legendre Jacobians on) and pseudo-spherical
 geometry (raw input atmosphere carried over by
 ``params.atmosphere_from_reference``, two solar zenith groups).
-Configurations outside the ported slice (successive orders, DO thermal
-emission, polarized radiance, flux observers) raise
-``NotImplementedError``; an engine with no device named needs a GPU."""
+Configurations outside the ported slices (successive orders, polarized
+thermal emission, polarized radiance with flux observers, BRDF limb scans
+and polarized BRDF) raise ``NotImplementedError``; an engine with no
+device named needs a GPU."""
 
 import numpy as np
 import pytest
@@ -135,7 +136,8 @@ def _ground_viewing(flux=False):
 @pytest.mark.parametrize(("config", "viewing", "match"), [
     (lambda: _config(skt, ms=skt.MultipleScatterSource.SuccessiveOrders),
      _ground_viewing, "successive orders"),
-    (lambda: _config(skt, emission_source=skt.EmissionSource.DiscreteOrdinates),
+    (lambda: _config(skt, num_stokes=3,
+                     emission_source=skt.EmissionSource.DiscreteOrdinates),
      _ground_viewing, "thermal emission"),
     (lambda: _config(skt, num_stokes=3), lambda: _ground_viewing(flux=True),
      "polarized radiance with flux observers.*slice 9"),
@@ -152,30 +154,20 @@ def test_out_of_slice_raises(config, viewing, match):
         skt.Engine(config(), geometry, viewing(), device="cpu")
 
 
-class _StandInBRDF:
-    """A surface constituent that sets a BRDF kernel, as the JAX package's
-    BRDF constituents do (the port has none yet)."""
-
-    def add_to_atmosphere(self, atmo):
-        atmo.surface.brdf = object()
-        atmo.surface.brdf_args = np.zeros((atmo.num_wavelengths, 1))
-
-    def register_derivative(self, atmo, name):
-        pass
-
-
 @pytest.mark.parametrize("num_stokes", [1, 3])
 def test_brdf_surface_raises(num_stokes):
-    """A BRDF surface (scalar or polarized) is refused at the call, naming
+    """A BRDF surface where the JAX package takes its generic route (a
+    scalar limb scan, polarized radiance) is refused at the call, naming
     its slice, instead of being treated as Lambertian."""
     config = _config(skt, num_stokes=num_stokes)
-    geometry = _geometry(skt, "PlaneParallel")
+    geometry = _geometry(skt, "Spherical")
     atmo = skt.Atmosphere(geometry, config, wavelengths_nm=np.array([500.0]))
     skt.climatology.us76.add_us76_standard_atmosphere(atmo)
     atmo["rayleigh"] = skt.constituent.Rayleigh()
-    atmo["surface"] = _StandInBRDF()
-    engine = skt.Engine(config, geometry, _ground_viewing(), device="cpu")
-    with pytest.raises(NotImplementedError, match="BRDF.*slice 4"):
+    atmo["surface"] = skt.constituent.MODIS(0.25, 0.15, 0.05)
+    viewing = _limb_viewing() if num_stokes == 1 else _ground_viewing()
+    engine = skt.Engine(config, geometry, viewing, device="cpu")
+    with pytest.raises(NotImplementedError, match="BRDF.*slice 9"):
         engine.calculate_radiance(atmo)
 
 

@@ -83,15 +83,18 @@ def test_solve_nstream_m0_levels(chapman, include_ss):
 
 
 def test_solve_nstream_m0_levels_refuses_thermal():
+    """A thermal source given by only one of its two level arrays is
+    refused (the complete source is held against the JAX package in
+    ``tests/test_torch_thermal.py``)."""
     P, W = 3, 2
     t = torch.ones((P, W), dtype=torch.float64)
     tables = mode_tables_from_reference(
         disco_ref.build_mode_tables(4, 4, 0.6, np.array([0.5]), num_azimuth=1))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        disco_nstream.solve_nstream_m0_levels(
-            t, 0.5 * t, torch.ones((4, P, W), dtype=torch.float64),
-            torch.ones(W, dtype=torch.float64), tables, thermal_b0=t,
-            thermal_b1_bottom=t)
+    for kw in ({"thermal_b0": t}, {"thermal_b1_bottom": t}):
+        with pytest.raises(ValueError, match="thermal_b0 and thermal_b1"):
+            disco_nstream.solve_nstream_m0_levels(
+                t, 0.5 * t, torch.ones((4, P, W), dtype=torch.float64),
+                torch.ones(W, dtype=torch.float64), tables, **kw)
 
 
 # --- the engine --------------------------------------------------------------

@@ -5,7 +5,9 @@ DO ray-source angular tables (scalar and polarized), the polarized
 solver's Pi matrices and per-greek mode tables, the engine's Stokes-basis
 rotations and flux-observer interpolation, the stream quadrature and
 associated Legendre tables, ``Config``, the US76 + Rayleigh + Lambertian
-atmosphere, and ``params.atmosphere_from_reference``.
+atmosphere, the BRDF, thermal and volume-emission constituents, the
+VMR absorber with its tabulated cross sections and the Planck function,
+and ``params.atmosphere_from_reference`` (a BRDF surface included).
 The geometries are the 16-stream slice's (cut to 20 altitudes), both cases
 of ``tests/test_torch_engine.py`` and a spherical limb scan with a
 ground-viewing ray; each side builds its objects with its own package from
@@ -356,3 +358,116 @@ def test_atmosphere_from_reference_round_trip(name):
     np.testing.assert_array_equal(got.wavelengths_nm, ref.wavelengths_nm)
     _assert_atmospheres_equal(got, ref)
     assert not np.shares_memory(got.storage.ssa, ref.storage.ssa)
+
+
+# the BRDF and thermal constituents, the absorber and its tabulated cross
+# section (``constituent/{brdf,emission,vmr_absorber}.py``,
+# ``optical/{base,tabulated}.py``): name -> constituents as (key, class
+# path, arguments), built by each package from the same numpy inputs
+_XS_WL = np.linspace(250.0, 800.0, 23)
+_XS = 1e-24 * (1.0 + np.sin(_XS_WL / 40.0) ** 2)
+_XS_T = np.stack([_XS, 1.3 * _XS, 0.7 * _XS])
+SURFACE_AND_EMISSION = {
+    "modis": [("surface", "constituent.MODIS", (0.25, [0.1, 0.15, 0.2], 0.05))],
+    "snow": [("surface", "constituent.SnowKokhanovsky", (2e-6, 1e-7, 5e5))],
+    "weighted": [("surface", "constituent.WeightedBRDF", ({
+        "snow": ("constituent.SnowKokhanovsky", (), 0.7),
+        "soil": ("constituent.MODIS", (0.2, 0.1, 0.05), [0.3, 0.2, 0.25]),
+        "lake": ("constituent.LambertianSurface", (0.04,), 0.1),
+    },))],
+    "thermal": [
+        ("thermal", "constituent.ThermalEmission", ()),
+        ("surface_emission", "constituent.SurfaceThermalEmission",
+         (288.15, 0.98)),
+        ("surface", "constituent.LambertianSurface", (0.02,)),
+    ],
+    "ver_and_absorber": [
+        ("ver", "constituent.VolumeEmissionRate",
+         (np.linspace(0.0, 100000.0, 7), np.linspace(1e6, 3e6, 7), 400.0)),
+        ("absorber", "constituent.VMRAltitudeAbsorber", (
+            ("optical.TabulatedCrossSectionAbsorber", (_XS_WL, _XS)),
+            np.linspace(0.0, 100000.0, 5), np.linspace(1e-6, 3e-6, 5))),
+        ("absorber_t", "constituent.VMRAltitudeAbsorber", (
+            ("optical.TabulatedCrossSectionAbsorber",
+             (_XS_WL, _XS_T, np.array([200.0, 250.0, 300.0]))),
+            np.linspace(0.0, 100000.0, 5), np.full(5, 2e-6))),
+    ],
+}
+
+
+def _resolve(pkg, path):
+    obj = pkg
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _make(pkg, path, args):
+    if path == "constituent.WeightedBRDF":
+        (members,) = args
+        return _resolve(pkg, path)({
+            name: (_resolve(pkg, p)(*a), w) for name, (p, a, w)
+            in members.items()})
+    args = [_make(pkg, *a) if isinstance(a, tuple) and len(a) == 2
+            and isinstance(a[0], str) else a for a in args]
+    return _resolve(pkg, path)(*args)
+
+
+def _surface_emission_atmosphere(pkg, name):
+    config, geometry, _ = _build(pkg, "engine_planeparallel")
+    atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
+    pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = pkg.constituent.Rayleigh()
+    for key, path, args in SURFACE_AND_EMISSION[name]:
+        atmo[key] = _make(pkg, path, args)
+    return atmo
+
+
+@pytest.mark.parametrize("name", list(SURFACE_AND_EMISSION))
+def test_surface_and_emission_constituents_equal(name):
+    """The core arrays (``brdf_args`` and the emission included), every
+    derivative mapping, and the BRDF kernel's class (members included)."""
+    got = _surface_emission_atmosphere(skt, name)
+    ref = _surface_emission_atmosphere(sk, name)
+    _assert_atmospheres_equal(got, ref)
+
+    def classes(kernel):
+        if kernel is None:
+            return None
+        return (type(kernel).__name__, kernel.num_args,
+                [classes(k) for k in getattr(kernel, "kernels", [])])
+
+    assert classes(got.surface.brdf) == classes(ref.surface.brdf)
+    if got.surface.brdf is not None:
+        assert type(got.surface.brdf).__module__ == (
+            "sasktran2_tpu_torch.rt.brdf")
+
+
+def test_planck_and_tabulated_cross_sections_equal():
+    wl_m = np.linspace(3e-6, 16e-6, 40)[None, :]
+    t = np.linspace(180.0, 320.0, 9)[:, None]
+    np.testing.assert_array_equal(
+        skt.constituent.planck_blackbody_radiance(wl_m, t),
+        sk.constituent.planck_blackbody_radiance(wl_m, t))
+    kw = {"altitudes_m": np.linspace(0.0, 5e4, 6),
+          "temperature_k": np.linspace(290.0, 210.0, 6)}
+    for args in ((_XS_WL, _XS), (_XS_WL, _XS_T, np.array([200.0, 250, 300]))):
+        np.testing.assert_array_equal(
+            skt.optical.TabulatedCrossSectionAbsorber(*args).cross_sections(
+                WAVELENGTHS, **kw),
+            sk.optical.TabulatedCrossSectionAbsorber(*args).cross_sections(
+                WAVELENGTHS, **kw))
+
+
+@pytest.mark.parametrize("name", ["modis", "weighted"])
+def test_atmosphere_from_reference_carries_brdf(name):
+    """A BRDF surface carried into the port: the port's kernel of the same
+    class, the same arguments (a copy) and surface mappings."""
+    ref = _surface_emission_atmosphere(sk, name)
+    ref.internal_object()
+    config, geometry, _ = _build(skt, "engine_planeparallel")
+    got = atmosphere_from_reference(ref, geometry, config)
+    assert type(got.surface.brdf).__name__ == type(ref.surface.brdf).__name__
+    assert type(got.surface.brdf).__module__ == "sasktran2_tpu_torch.rt.brdf"
+    assert not np.shares_memory(got.surface.brdf_args, ref.surface.brdf_args)
+    _assert_atmospheres_equal(got, ref)

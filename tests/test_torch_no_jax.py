@@ -4,8 +4,9 @@ In a fresh interpreter: import ``sasktran2_tpu_torch``, build a US76 +
 Rayleigh + Lambertian atmosphere with the port's constituents, run a tiny
 spherical engine with a ground-viewing and a limb ray, exact single
 scatter and DO multiple scatter on the CPU (scalar; polarized, which runs
-the vector solver and the vector limb source; or scalar with flux
-observers), and check that neither ``jax`` nor any ``sasktran2_tpu``
+the vector solver and the vector limb source; scalar with flux observers;
+over a MODIS BRDF, ground-viewing only; or thermal infrared with DO
+emission, an absorber and flux observers), and check that neither ``jax`` nor any ``sasktran2_tpu``
 module is in ``sys.modules`` and that the host ray tracer was built inside
 the port. A static pass parses every module of the port, and
 ``chip_smoke.py``, for such imports. With no GPU, an engine that names no
@@ -34,11 +35,15 @@ SCRIPT = textwrap.dedent("""
 
     case = sys.argv[1]
     nstokes = 3 if case == "polarized" else 1
+    thermal = case == "thermal"
     config = sk.Config(
         num_streams=4,
         num_stokes=nstokes,
         multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
-        single_scatter_source=sk.SingleScatterSource.Exact,
+        single_scatter_source=(sk.SingleScatterSource.DiscreteOrdinates
+                               if thermal else sk.SingleScatterSource.Exact),
+        emission_source=(sk.EmissionSource.DiscreteOrdinates if thermal
+                         else sk.EmissionSource.NoSource),
     )
     geometry = sk.Geometry1D(
         cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
@@ -47,20 +52,36 @@ SCRIPT = textwrap.dedent("""
     )
     viewing = sk.ViewingGeometry()
     viewing.add_ray(sk.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
-    viewing.add_ray(sk.TangentAltitudeSolar(30000.0, 0.3, 200000.0, 0.6))
-    if case == "flux":
+    if case != "brdf":
+        viewing.add_ray(sk.TangentAltitudeSolar(30000.0, 0.3, 200000.0, 0.6))
+    if case in ("flux", "thermal"):
         viewing.add_flux_observer(sk.FluxObserverSolar(0.6, 10000.0))
-    atmo = sk.Atmosphere(geometry, config, wavelengths_nm=[350.0, 600.0])
+    wl = [4500.0, 9000.0] if thermal else [350.0, 600.0]
+    atmo = sk.Atmosphere(geometry, config, wavelengths_nm=wl)
     sk.climatology.us76.add_us76_standard_atmosphere(atmo)
     atmo["rayleigh"] = sk.constituent.Rayleigh()
     atmo["surface"] = sk.constituent.LambertianSurface(0.3)
+    if case == "brdf":
+        atmo["surface"] = sk.constituent.MODIS(0.25, 0.15, 0.05)
+    if thermal:
+        atmo["absorber"] = sk.constituent.VMRAltitudeAbsorber(
+            sk.optical.TabulatedCrossSectionAbsorber(
+                [4000.0, 15000.0], [1e-26, 1e-25]),
+            [0.0, 100000.0], [4e-4, 4e-4])
+        atmo["thermal"] = sk.constituent.ThermalEmission()
+        atmo["surface_emission"] = sk.constituent.SurfaceThermalEmission(288.0)
     engine = sk.Engine(config, geometry, viewing, device="cpu")
     out = engine.calculate_radiance(atmo)
     rad = out["radiance"].to_numpy()
-    assert rad.shape == (2, 2, nstokes) and np.all(rad[..., 0] > 0), rad
+    nlos = 1 if case == "brdf" else 2
+    assert rad.shape == (2, nlos, nstokes) and np.all(rad[..., 0] > 0), rad
     assert "wf_rayleigh_pressure_pa" in out
-    if case == "flux":
+    if case in ("flux", "thermal"):
         assert "wf_rayleigh_pressure_pa_downwelling_flux" in out
+    if case == "brdf":
+        assert "wf_surface_volumetric" in out
+    if thermal:
+        assert "wf_thermal_temperature_k_upwelling_flux" in out
     lib = native.get_native_lib()
     if lib is not None:
         built = os.path.realpath(lib._name)
@@ -75,7 +96,8 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("case", ["scalar", "polarized", "flux"])
+@pytest.mark.parametrize("case", ["scalar", "polarized", "flux", "brdf",
+                                  "thermal"])
 def test_port_never_imports_jax(case):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

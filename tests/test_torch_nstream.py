@@ -82,14 +82,18 @@ def test_solve_nstream_and_gradients(nstr, chapman, include_ss, num_azimuth):
 
 
 def test_solve_nstream_out_of_slice_raises():
+    """Surface and source inputs the solver cannot take: a thermal source
+    given by one of its two level arrays, and a BRDF kernel that is not
+    one of the port's (``rt.brdf``; ``params.brdf_from_reference``
+    carries a JAX-side one over)."""
     tables = disco_nstream.build_mode_tables(4, 4, 0.6, USER_MU)
     ts = [torch.tensor(x) for x in _inputs(4, 0)]
-    with pytest.raises(NotImplementedError, match="thermal"):
+    with pytest.raises(ValueError, match="thermal"):
         disco_nstream.solve_nstream(
             *ts, tables, USER_UP, USER_AZI, thermal_b0=ts[0],
-            thermal_b1_bottom=ts[0],
         )
     with pytest.raises(NotImplementedError, match="BRDF"):
         disco_nstream.solve_nstream(
             *ts, tables, USER_UP, USER_AZI, brdf=object(),
+            brdf_args=torch.ones((3, 1), dtype=torch.float64),
         )

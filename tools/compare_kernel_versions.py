@@ -8,12 +8,10 @@ thomas.cu`` and ``jacobi.cu``, for example from ``git show
 <commit>:sasktran2_tpu_torch/csrc/jacobi.cu``; they are compiled with the
 port's nvcc flags into ``--build-dir`` and never enter the package. Each
 kernel whose old source is given is compared; the current sources are
-built by the package. An old ``jacobi.cu`` has either the current entry
-points or those of before the shared-memory branch (a, w, v, P, n, W,
-sweeps, stream), the interface of the local-memory version against which
-PERF.md's n = 12 and 24 times were taken; the script tells the two apart
-by the number of parameters in the source's declaration, and stops on any
-other. In f32 at the engines' shapes (Thomas
+built by the package. An old ``jacobi.cu`` must have the current entry
+points (``ops/jacobi_cuda._SIGNATURE``); the earlier local-memory
+version's interface is not bound (its n = 12 and 24 times stay in
+PERF.md's kernel table). In f32 at the engines' shapes (Thomas
 [100, 16, 16, 1024]; Jacobi [100, n, n, 1024] with 7 sweeps at n = 8, 12
 and 24) the script times old, new, new, old, each by CUDA events, and
 prints the card's name and power limit, the ptxas report of every build,
@@ -30,7 +28,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import re
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,15 +39,6 @@ def _bind(path, fn_name, argtypes):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
-
-
-def _c_params(src, fn_name):
-    """The number of parameters of ``fn_name`` in the C source ``src``."""
-    with open(src) as f:
-        m = re.search(rf"int {fn_name}\(([^)]*)\)", f.read())
-    if m is None:
-        sys.exit(f"{src}: found no declaration 'int {fn_name}(...)'")
-    return m.group(1).count(",") + 1
 
 
 def main():
@@ -126,15 +114,9 @@ def main():
 
     # --- Jacobi ---------------------------------------------------------------
     if args.old_jacobi is not None:
-        new_sig = jacobi_cuda._SIGNATURE
-        n_params = _c_params(args.old_jacobi, "jacobi_eigh_f32")
-        if n_params not in (8, len(new_sig)):
-            sys.exit(f"{args.old_jacobi}: jacobi_eigh_f32 takes {n_params} "
-                     f"parameters, neither 8 nor the current {len(new_sig)}")
-        short = n_params == 8
-        old_sig = new_sig[:7] + new_sig[-1:] if short else new_sig
-        fns["old"] = _bind(libs["old", "jacobi"], "jacobi_eigh_f32", old_sig)
-        fns["new"] = _bind(libs["new", "jacobi"], "jacobi_eigh_f32", new_sig)
+        for version in ("old", "new"):
+            fns[version] = _bind(libs[version, "jacobi"], "jacobi_eigh_f32",
+                                 jacobi_cuda._SIGNATURE)
         for P, n, W in [(100, 8, 1024), (100, 12, 1024), (100, 24, 1024)]:
             a = np.random.default_rng(P + n).normal(size=(P, n, n, W))
             a = torch.as_tensor(0.5 * (a + np.swapaxes(a, -3, -2)), dtype=f32,
@@ -143,8 +125,6 @@ def main():
                          torch.empty_like(a)) for v in ("old", "new")}
             jargs = {v: jacobi_cuda.kernel_args(a, *jouts[v], 7)
                      for v in ("old", "new")}
-            if short:
-                jargs["old"] = jargs["old"][:7]
 
             def jacobi(version, jargs=jargs):
                 err = fns[version](*jargs[version], stream)

@@ -4,12 +4,15 @@ PyTorch port's engine runs against.
 The cases are those of ``sasktran2_tpu_torch.scenarios``: the 16-stream
 ground-viewing case (``smoke_case``), the 16-stream limb scan
 (``limb_case``), the two-stream case (``twostream_case``), the 16-stream
-flux case (``flux16_case``) and the 4-stream polarized case
-(``pol4_case``). Wavelengths are independent in this model, so 8
-wavelengths taken from the 1024-point grid give the same values as the
-full grid. Runs the JAX engine on the CPU in float64:
+flux case (``flux16_case``), the 4-stream polarized case
+(``pol4_case``), the 16-stream MODIS BRDF case (``brdf16_case``) and the
+16-stream thermal infrared cases, ground-viewing with fluxes and limb
+(``thermal16_case``, ``thermallimb16_case``). Wavelengths are
+independent in this model, so 8 wavelengths taken from a case's
+1024-point grid give the same values as the full grid. Runs the JAX
+engine on the CPU in float64:
 
-    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|pol16_solver|test_vec8|test_limbpol4|all]
+    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|pol16_solver|test_vec8|test_limbpol4|all]
 
 and writes ``sasktran2_tpu_torch/data/golden_<case>.npz`` with the
 wavelength indices, the wavelengths, ``radiance``, the ``*_flux``
@@ -42,9 +45,10 @@ for ``radiance`` and the fluxes the largest relative error per element
 (for the polarized radiance: I per element, Q and U relative to the
 largest |Q| and |U|), for each ``wf_*`` and gradient the largest error
 relative to the variable's largest magnitude.
-A float32 run of the port is held to the larger of its gate and that
-error (``chip_smoke.py``): some weighting functions of these cases cannot
-be computed to the gate in float32 by the reference either.
+``chip_smoke.py`` prints it beside the port's own float32 error; the
+port is held to its gates alone (some variables of the thermal case miss
+them in the reference's float32: its 80 km downwelling flux and its flux
+pressure weighting functions).
 """
 
 from __future__ import annotations
@@ -62,12 +66,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     from sasktran2_tpu_torch import scenarios
 
+    solar = scenarios.smoke_wavelengths
+    thermal = scenarios.thermal_wavelengths
     cases = {
-        "nstr16": (scenarios.smoke_case, scenarios.GOLDEN_PATH),
-        "limb16": (scenarios.limb_case, scenarios.GOLDEN_LIMB_PATH),
-        "2str": (scenarios.twostream_case, scenarios.GOLDEN_2STR_PATH),
-        "flux16": (scenarios.flux16_case, scenarios.GOLDEN_FLUX16_PATH),
-        "pol4": (scenarios.pol4_case, scenarios.GOLDEN_POL4_PATH),
+        "nstr16": (scenarios.smoke_case, scenarios.GOLDEN_PATH, solar),
+        "limb16": (scenarios.limb_case, scenarios.GOLDEN_LIMB_PATH, solar),
+        "2str": (scenarios.twostream_case, scenarios.GOLDEN_2STR_PATH, solar),
+        "flux16": (scenarios.flux16_case, scenarios.GOLDEN_FLUX16_PATH,
+                   solar),
+        "pol4": (scenarios.pol4_case, scenarios.GOLDEN_POL4_PATH, solar),
+        "brdf16": (scenarios.brdf16_case, scenarios.GOLDEN_BRDF16_PATH,
+                   solar),
+        "thermal16": (scenarios.thermal16_case,
+                      scenarios.GOLDEN_THERMAL16_PATH, thermal),
+        "thermallimb16": (scenarios.thermallimb16_case,
+                          scenarios.GOLDEN_THERMALLIMB16_PATH, thermal),
     }
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     tests = {"test_vec8": vec8_test_golden,
@@ -84,7 +97,7 @@ def main():
 
     import sasktran2_tpu as sk
 
-    def run(name, build, dtype):
+    def run(name, build, dtype, wl):
         jax.config.update("jax_enable_x64", dtype == "float64")
         config, geometry, viewing, atmo = build(sk, dtype, wl)
         t0 = time.perf_counter()
@@ -96,19 +109,20 @@ def main():
                 or k.startswith("wf_")}
 
     idx = scenarios.GOLDEN_INDICES
-    wl = scenarios.smoke_wavelengths()[idx]
-    for name, (build, path) in cases.items():
+    for name, (build, path, grid) in cases.items():
         if args.case not in (name, "all"):
             continue
-        f32 = run(name, build, "float32")
-        f64 = run(name, build, "float64")
+        wl = grid()[idx]
+        f32 = run(name, build, "float32", wl)
+        f64 = run(name, build, "float64", wl)
         arrays = {"indices": idx, "wavelengths_nm": wl, **f64}
         for key, ref in f64.items():
             arrays[f"jax_f32_err_{key}"] = scenarios.golden_error(
                 key, f32[key], ref)
         save(path, arrays)
     if args.case in ("pol16_solver", "all"):
-        save(scenarios.GOLDEN_POL16_SOLVER_PATH, pol16_solver(sk, wl, idx))
+        save(scenarios.GOLDEN_POL16_SOLVER_PATH,
+             pol16_solver(sk, solar()[idx], idx))
     for name, make in tests.items():
         if args.case in (name, "all"):
             jax.config.update("jax_enable_x64", True)
