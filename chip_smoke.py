@@ -20,7 +20,9 @@ final line:
    n = 12 to 32 in shared memory) against numpy ``eigvalsh``, the
    eigen-residual, the orthogonality of V, and the plain twin; repeated
    launches of the shared-memory branch, which must be bit-identical
-   (evidence against races where no race detector runs); and the
+   (evidence against races where no race detector runs); converged
+   matrices whose pairs are in reversed order (off-diagonal 1e-30 in f32,
+   1e-300 in f64), whose eigenvectors must stay orthonormal; and the
    time of ``torch.linalg.eigh`` on the same matrices as one contiguous
    [P*W, 8, 8] batch, the one PyTorch call that computes the same
    function (timed here only; the port never calls it), on its cuSOLVER
@@ -39,7 +41,8 @@ final line:
    engine's shapes, with its launches per call, its bound (the larger of
    the bytes it must move over 3.35 TB/s and its FP32 operations over
    67 TFLOP/s, the H100 SXM's published peaks) and the share of that
-   bound it reaches.
+   bound it reaches; for K1 also ``torch.linalg.solve`` on the same
+   systems assembled dense, [1024, 1600, 1600], in calls of 128.
 6. The 16-stream spherical limb scan (``scenarios.limb_case``: 20 limb
    rays, exact single scatter, DO multiple scatter on a 2-point solar
    zenith grid, W = 1024, float32, full Jacobians) with the checks of
@@ -53,7 +56,8 @@ final line:
    engine's own inputs (captured in a radiance-only call): K3 at
    [100, 24, 24, 1024] (pol16) and [100, 6, 6, 1024] (pol4), K1/K2 at
    [100, 12, 12, 1024] (pol4), each against its plain twin and a float64
-   truth, timed beside its bound (and ``torch.linalg.eigh`` for K3); the
+   truth, timed beside its bound (and ``torch.linalg.eigh`` for K3, the
+   dense ``torch.linalg.solve`` of [1024, 1200, 1200] for K1); the
    eigen-residual of the engine's 7-sweep n = 24 eigensolves of every
    azimuth mode, which must be <= 1e-5 of max |A|; and the
    time of one K = 48 block-Thomas solve, which takes the torch-op loop
@@ -82,6 +86,25 @@ final line:
     against ``golden_thermal16.npz``.
 15. The thermal limb scan (``scenarios.thermallimb16_case``, 20 limb
     rays) against ``golden_thermallimb16.npz``.
+16. generic16: ``smoke_case`` with the engine's fast-path gates replaced
+    by ``lambda: False``, so the generic per-wavelength route solves it
+    (``rt.disco.solve_plane_parallel``: the azimuth modes as a batch
+    axis, K1 at K = 16 and K3 at n = 8 on the (mode x wavelength) batch),
+    with the checks of phase 4 against the same ``golden_nstr16.npz``
+    and its rate printed beside ground16's from this run.
+17. polbrdf4: ``pol4_case`` over the MODIS BRDF (``polbrdf4_case``, all
+    4 azimuth modes), against ``golden_polbrdf4.npz``.
+18. polflux4: ``pol4_case`` with ``flux16_case``'s six observers and four
+    flux types, against ``golden_polflux4.npz``: the rays and the m = 0
+    vector flux solve on the generic route.
+19. polthermallimb4: ``thermallimb16_case``'s atmosphere, wavelengths and
+    20 limb rays polarized at 4 streams (``polthermallimb4_case``; the
+    vector thermal source and ``ms_source_along_rays_vec``), against
+    ``golden_polthermallimb4.npz``, with Q and U held to the largest |I|
+    (the sun is off and Rayleigh scattering at 4-15 um polarizes only a
+    trace).
+Each of 17-19 must take the generic route by the engine's own gates, and
+each of 16-19 must launch K1 and K3 at the sizes named.
 
 Each engine case prints its launches per kernel instance, the peak device
 memory, the warm-call times with and without Jacobians and the Jacobian
@@ -293,11 +316,47 @@ def phase_thomas(dev, label):
     record["plain_ms"] = cuda_ms(
         lambda: thomas_cuda.thomas_solve_plain(*a32), 3)
     record["bound_ms"], record["bound_by"] = thomas_bound(100, 16, 1024, 4)
-    # no single PyTorch call solves the block-tridiagonal system: a dense
-    # torch.linalg.solve of the assembled [1024, 1600, 1600] system gives
-    # the same x at about 10^4 times the work and 10 GB
-    record["library_ms"] = None
+    record["library_ms"] = library_dense_solve_ms(a32, label)
     return record
+
+
+def library_dense_solve_ms(system, label, chunk=128):
+    """Time of ``torch.linalg.solve`` on the block-tridiagonal systems
+    ``system`` = (lo, di, up, r) [P, K, K, W] assembled as dense
+    [W, P*K, P*K] matrices, the one PyTorch call that computes the same x
+    (at about P^2 times the Thomas solve's work): ``chunk`` wavelengths a
+    call, the matrices of every chunk assembled before the clock starts.
+    Prints the dense solution's largest difference from the Thomas
+    kernel's relative to max |x|, as a note."""
+    import torch
+    from sasktran2_tpu_torch.ops import thomas_cuda
+
+    lo, di, up, r = system
+    P, K, _, W = di.shape
+    idx = torch.arange(P, device=di.device)
+    chunks = []
+    for w0 in range(0, W, chunk):
+        sl = slice(w0, min(w0 + chunk, W))
+        C = sl.stop - sl.start
+        dense = torch.zeros((C, P, K, P, K), dtype=di.dtype, device=di.device)
+        dense[:, idx, :, idx, :] = di[..., sl].permute(0, 3, 1, 2)
+        dense[:, idx[1:], :, idx[:-1], :] = lo[1:, ..., sl].permute(0, 3, 1, 2)
+        dense[:, idx[:-1], :, idx[1:], :] = up[:-1, ..., sl].permute(0, 3, 1, 2)
+        rhs = r[..., sl].permute(2, 0, 1).reshape(C, P * K, 1)
+        chunks.append((dense.reshape(C, P * K, P * K), rhs))
+    xs = [torch.linalg.solve(a, b) for a, b in chunks]
+    x = torch.cat(xs).reshape(W, P, K).permute(1, 2, 0)
+    xk = thomas_cuda.thomas_solve(*system)
+    diff = float((x - xk).abs().max() / xk.abs().max())
+    ms = cuda_ms(lambda: [torch.linalg.solve(a, b) for a, b in chunks], 1)
+    print(f"[{label}] library call: torch.linalg.solve on the assembled "
+          f"dense [{W}, {P * K}, {P * K}] systems ({di.dtype}, {len(chunks)} "
+          f"calls of <= {chunk}): {ms:.3f} ms for the whole batch; its x vs "
+          f"the Thomas kernel's, rel to max |x|: {diff:.3e} (a note)",
+          flush=True)
+    del chunks, xs
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase_jacobi(dev, label):
@@ -365,7 +424,40 @@ def phase_jacobi(dev, label):
                 P, n, W, 7, 4)
             batch = t32.permute(0, 3, 1, 2).reshape(P * W, n, n).contiguous()
             record["library_ms"] = library_eigh_ms(batch, label)
+    jacobi_reversed_pairs(dev, label)
     return record
+
+
+def jacobi_reversed_pairs(dev, label):
+    """K3 on converged matrices whose pairs are in reversed order:
+    diagonal n, n-1, ..., 1 (a_qq < a_pp in every pair) and off-diagonal
+    entries of 1e-30 (1e-300 in f64), where the rotation is a near-swap
+    with |a_pq| / |a_qq - a_pp| below 1e-19. The eigenvectors must stay
+    orthonormal (|V^T V - I| <= 1e-6) and the eigenvalues exact to 1e-6
+    relative: a tangent t = (r - x) / y whose square overflows would give
+    c = s = 0 and zero two eigenvectors."""
+    import torch
+    from sasktran2_tpu_torch.ops import jacobi_cuda
+
+    for dt, tiny in ((torch.float32, 1e-30), (torch.float64, 1e-300)):
+        for n in (2, 6, 8, 12, 24):
+            d = np.arange(n, 0, -1, dtype=np.float64)
+            a = np.full((n, n), tiny) + np.diag(d - tiny)
+            a = torch.as_tensor(np.broadcast_to(a[None, :, :, None],
+                                                (2, n, n, 64)).copy(),
+                                dtype=dt, device=dev)
+            w, v = jacobi_cuda.jacobi_eigh(a, 7 if dt == torch.float32 else 10)
+            w, v = w.double().cpu().numpy(), v.double().cpu().numpy()
+            orth = float(np.max(np.abs(np.einsum("pjaw,pjbw->pabw", v, v)
+                                       - np.eye(n)[None, :, :, None])))
+            ev = float(np.max(np.abs(np.sort(w, axis=1)
+                                     - np.sort(d)[None, :, None]) / n))
+            ok = np.isfinite(orth) and orth <= 1e-6 and ev <= 1e-6
+            print(f"[{label}] jacobi n={n} {dt} reversed converged pairs "
+                  f"(off-diagonal {tiny:g}): |V^T V - I| {orth:.3e} "
+                  f"(<= 1e-6), eigenvalues rel {ev:.3e} (<= 1e-6)",
+                  flush=True)
+            check(ok, f"jacobi n={n} {dt}: reversed converged pairs")
 
 
 def jacobi_repeats_identical(a, sweeps, launches=5):
@@ -423,7 +515,7 @@ def library_eigh_ms(batch, label, magma=True):
 
 
 def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label,
-                   f32=False):
+                   f32=False, qu_scale="own"):
     """Errors against reference values (``golden``: a dict or an npz of
     the JAX float64 golden values, or the port's own float64 run), by
     ``scenarios.golden_error``: radiance and fluxes per element (the
@@ -441,7 +533,7 @@ def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label,
         got = out[name].to_numpy()
         ax = out[name].dims.index("wavelength")
         errs[name] = golden_error(name, np.take(got, idx, axis=ax),
-                                  golden[name])
+                                  golden[name], qu_scale=qu_scale)
     tols = {k: wf_tol if k.startswith("wf_") else rad_tol for k in errs}
 
     def note(name):
@@ -450,9 +542,10 @@ def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label,
             return ""
         return f", JAX f32 {float(golden[key]):.3e}"
 
+    qu = "their max" if qu_scale == "own" else "the max of |I|"
     print(f"[{label}] {what} vs reference at {len(idx)} wavelengths "
-          "(radiance and fluxes max rel per element, polarized Q, U rel to "
-          "their max, wf_* rel to their max): "
+          f"(radiance and fluxes max rel per element, polarized Q, U rel to "
+          f"{qu}, wf_* rel to their max): "
           + ", ".join(f"{k} {v:.3e} (<= {tols[k]:g}{note(k)})"
                       for k, v in errs.items()), flush=True)
     for k, v in errs.items():
@@ -503,8 +596,22 @@ def engine_outputs(out):
             if k == "radiance" or k.startswith("wf_") or k.endswith("_flux")}
 
 
+# wavelengths/s of each engine case of this run: what -> (with Jacobians,
+# radiance only)
+RATES = {}
+
+
+def force_generic(engine):
+    """Send ``engine`` down the generic per-wavelength route: both
+    fast-path gates replaced by ``lambda: False``, as the JAX package's
+    tests do (``tests/test_brdf.py:211``)."""
+    engine._twostream_fast_ok = lambda: False
+    engine._polarized_fast_ok = lambda: False
+    return engine
+
+
 def engine_case(sk, build, golden_path, wl, reps, what, label,
-                kernels_expected):
+                kernels_expected, generic=None, qu_scale="own"):
     """One engine case of ``sasktran2_tpu_torch.scenarios`` end to end on
     the card: the cold call in float32 with Jacobians through an engine
     built with no device (so on ``cuda``), with the launches of both
@@ -519,10 +626,13 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     compile the case (``golden_path`` None) it is the port's own float64
     run on the card. ``kernels_expected`` maps each kernel (and
     ``torch_op_thomas``, the K > 24 block solves) to the instances (K or
-    n) the path must launch. Then the median of ``reps``
-    warm calls with and without Jacobians, as wavelengths/s and
-    wavelength-lines-of-sight/s, and the Jacobian rows' share. Returns the
-    launch counts."""
+    n) the path must launch. ``generic`` None leaves the route to the
+    engine; "forced" sends it down the generic route (``force_generic``),
+    "own" requires that the engine's gates chose the generic route, and
+    both check that the call took it. ``qu_scale`` is ``compare_golden``'s.
+    Then the median of ``reps`` warm calls with and without Jacobians, as
+    wavelengths/s (kept in ``RATES``) and wavelength-lines-of-sight/s, and
+    the Jacobian rows' share. Returns the launch counts."""
     import torch
     from sasktran2_tpu_torch.scenarios import GOLDEN_INDICES
 
@@ -530,6 +640,8 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     config, geometry, viewing, atmo = build(sk, "float32", wl)
     engine = sk.Engine(config, geometry, viewing)  # no device: the card
     check(engine._device.type == "cuda", "the engine did not default to cuda")
+    if generic == "forced":
+        force_generic(engine)
     nlos = len(viewing.observer_rays)
     ns = config.num_stokes
     print(f"[{label}] {what}: engine device {engine._device}; ray tracer: "
@@ -544,7 +656,11 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{label}] {what} W={W} f32 with Jacobians: first call "
           f"{first_s:.2f} s, kernel launches {launches}, peak device memory "
-          f"{peak_gb:.2f} GB", flush=True)
+          f"{peak_gb:.2f} GB, route "
+          f"{'fast path' if engine._fast_route else 'generic'}", flush=True)
+    if generic is not None:
+        check(not engine._fast_route, f"{what}: the call did not take the "
+              "generic route")
     for name, sizes in kernels_expected.items():
         by = launches[{"thomas": "thomas_by_k", "jacobi": "jacobi_by_n",
                        "torch_op_thomas": "torch_op_thomas_by_k"}[name]]
@@ -565,16 +681,18 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     check(finite and positive, f"{what}: non-finite or non-positive output")
     idx = GOLDEN_INDICES
     config64, geometry64, viewing64, atmo64 = build(sk, "float64", wl[idx])
-    out64 = sk.Engine(config64, geometry64, viewing64, device="cuda:0")\
-        .calculate_radiance(atmo64)
+    engine64 = sk.Engine(config64, geometry64, viewing64, device="cuda:0")
+    if generic == "forced":
+        force_generic(engine64)
+    out64 = engine64.calculate_radiance(atmo64)
     if golden_path is not None:
         golden = dict(np.load(golden_path))
         check(np.allclose(golden["wavelengths_nm"], wl[idx]),
               f"{what}: golden file is for another wavelength grid")
         compare_golden(out, golden, idx, 2e-3, 5e-2, f"{what} f32 W={W}",
-                       label, f32=True)
+                       label, f32=True, qu_scale=qu_scale)
         compare_golden(out64, golden, np.arange(len(idx)), 1e-8, 1e-8,
-                       f"{what} f64 W={len(idx)}", label)
+                       f"{what} f64 W={len(idx)}", label, qu_scale=qu_scale)
     else:
         compare_golden(out, engine_outputs(out64), idx, 2e-3, 5e-2,
                        f"{what} f32 W={W} vs the port's f64 on the card",
@@ -590,6 +708,7 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     torch.cuda.reset_peak_memory_stats()
     times = timed_calls(engine, atmo, reps)
     med = statistics.median(times)
+    RATES[what] = (W / med_jac, W / med)
     nout = nlos * ns + sum(k.endswith("_flux") for k in out.keys()
                            if not k.startswith("wf_")) * len(
         getattr(viewing, "flux_observers", []))
@@ -699,8 +818,8 @@ def phase_jacobi_instance(a32, label, what):
 def phase_thomas_instance(system32, label, what):
     """K1/K2 at an engine's own block-tridiagonal system (f32): the kernel
     and its plain twin against a float64 solve of the same system, error
-    relative to max |x| <= max(4 x the plain twin's, 1e-5); time and
-    bound."""
+    relative to max |x| <= max(4 x the plain twin's, 1e-5); time, bound
+    and the dense ``torch.linalg.solve``'s time."""
     import torch
     from sasktran2_tpu_torch.ops import thomas_cuda
 
@@ -721,7 +840,7 @@ def phase_thomas_instance(system32, label, what):
     rec["plain_ms"] = cuda_ms(
         lambda: thomas_cuda.thomas_solve_plain(*system32), 3)
     rec["bound_ms"], rec["bound_by"] = thomas_bound(P, K, W, 4)
-    rec["library_ms"] = None
+    rec["library_ms"] = library_dense_solve_ms(system32, label)
     return rec
 
 
@@ -863,15 +982,25 @@ def main():
         from sasktran2_tpu_torch.scenarios import (
             GOLDEN_BRDF16_PATH,
             GOLDEN_FLUX16_PATH,
+            GOLDEN_PATH,
             GOLDEN_POL4_PATH,
+            GOLDEN_POLBRDF4_PATH,
+            GOLDEN_POLFLUX4_PATH,
+            GOLDEN_POLTHERMALLIMB4_PATH,
             GOLDEN_THERMAL16_PATH,
             GOLDEN_THERMALLIMB16_PATH,
             LIMBPOL_NUM_LOS,
+            POLTHERMAL_NUM_LOS,
+            QU_SCALE,
             brdf16_case,
             flux16_case,
             limbpol16_case,
             pol4_case,
             pol16_case,
+            polbrdf4_case,
+            polflux4_case,
+            polthermallimb4_case,
+            smoke_case,
             smoke_wavelengths,
             thermal16_case,
             thermal_wavelengths,
@@ -983,7 +1112,7 @@ def main():
           "brdf16 did not solve every azimuth mode")
 
     # --- phases 14, 15: thermal emission, ground-viewing with fluxes, limb --------
-    twl = thermal_wavelengths()
+    twl = thermal_wavelengths()  # phases 14, 15 and 19
     thermal_launches = engine_case(
         sk, thermal16_case, GOLDEN_THERMAL16_PATH, twl, 3,
         "thermal16 nstr=16 P=100 nlos=4 nobs=6 (4 types)", label,
@@ -995,12 +1124,47 @@ def main():
         kernels_expected={"thomas": [16], "jacobi": [8]},
     )
 
+    # --- phases 16-19: the generic per-wavelength route -------------------------
+    generic_launches = engine_case(
+        sk, smoke_case, GOLDEN_PATH, wl, 3,
+        "generic16 nstr=16 P=100 nlos=4 (generic route forced)", label,
+        kernels_expected={"thomas": [16], "jacobi": [8]}, generic="forced",
+    )
+    fast_rate = RATES["engine nstr=16 P=100 nlos=4"]
+    generic_rate = RATES[
+        "generic16 nstr=16 P=100 nlos=4 (generic route forced)"]
+    print(f"[{label}] generic16 against ground16 (the same case on the fast "
+          f"path, this run): {generic_rate[0]:.1f} vs {fast_rate[0]:.1f} "
+          f"wavelengths/s with Jacobians, {generic_rate[1]:.1f} vs "
+          f"{fast_rate[1]:.1f} radiance only; kernel launches per call "
+          f"{generic_launches['thomas']} / {generic_launches['jacobi']} vs "
+          f"{launches['thomas']} / {launches['jacobi']} (thomas / jacobi)",
+          flush=True)
+    polbrdf_launches = engine_case(
+        sk, polbrdf4_case, GOLDEN_POLBRDF4_PATH, wl, 3,
+        "polbrdf4 nstr=4 P=100 nlos=4 (I, Q, U; MODIS)", label,
+        kernels_expected={"thomas": [12], "jacobi": [6]}, generic="own",
+    )
+    polflux_launches = engine_case(
+        sk, polflux4_case, GOLDEN_POLFLUX4_PATH, wl, 3,
+        "polflux4 nstr=4 P=100 nlos=4 nobs=6 (I, Q, U; 4 types)", label,
+        kernels_expected={"thomas": [12], "jacobi": [6]}, generic="own",
+    )
+    polthermal_launches = engine_case(
+        sk, polthermallimb4_case, GOLDEN_POLTHERMALLIMB4_PATH, twl, 3,
+        f"polthermallimb4 nstr=4 P=100 nlos={POLTHERMAL_NUM_LOS} (I, Q, U)",
+        label, kernels_expected={"thomas": [12], "jacobi": [6]},
+        generic="own", qu_scale=QU_SCALE["polthermallimb4"],
+    )
+
     check_no_jax(label)
     by_path = {
         "ground16": launches, "limb16": limb_launches, "flux16": flux_launches,
         "pol4": pol4_launches, "pol16": pol16_launches,
         "limbpol16": limbpol_launches, "brdf16": brdf_launches,
         "thermal16": thermal_launches, "thermallimb16": thermallimb_launches,
+        "generic16": generic_launches, "polbrdf4": polbrdf_launches,
+        "polflux4": polflux_launches, "polthermallimb4": polthermal_launches,
     }
 
     def instance(kernel, size, main):

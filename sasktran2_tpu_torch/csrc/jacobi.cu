@@ -12,10 +12,14 @@
 // rotation from the matrix as the round found it, in the Pallas kernel's
 // half-angle tangent form (pallas_jacobi.py:72-88): with x = a_qq - a_pp,
 // y = 2 a_pq, r = |(x, y)|,
-//   t = y / (r + x) for x >= 0,  t = (r - x) / y for x < 0,
-//   c = 1 / sqrt(1 + t^2),  s = t c,  and no rotation where a_pq == 0,
+//   t = y / (r + x) for x >= 0,  c = 1 / sqrt(1 + t^2),  s = t c;
+//   u = 1 / t = y / (r - x) for x < 0,  c = |u| / sqrt(1 + u^2),
+//   s = sign(u) / sqrt(1 + u^2);  and no rotation where a_pq == 0,
 // which is the angle 0.5 atan2(y, x) of the reference's scan, up to
-// rounding. Then A <- J^T A J (columns, then rows, as lanes.py:362-391
+// rounding. For x < 0 the Pallas kernel forms t = (r - x) / y itself:
+// where |y| is below about 1e-19 |x| (a converged pair whose order is
+// reversed, met in the polarized thermal-infrared solves), t^2 overflows
+// float32 and its c = s = 0 zeroes two eigenvectors; u cannot overflow. Then A <- J^T A J (columns, then rows, as lanes.py:362-391
 // orders them) and V <- V J.
 //
 // Two designs, chosen by n.
@@ -80,23 +84,31 @@ __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
+__device__ __forceinline__ float copysign_t(float x, float y) { return copysignf(x, y); }
+__device__ __forceinline__ double copysign_t(double x, double y) { return copysign(x, y); }
 
 template <typename T>
 __device__ __forceinline__ void rotation(T app, T aqq, T apq, T& c, T& s) {
   const T x = aqq - app;
   const T y = T(2) * apq;
   const T r = sqrt_t(x * x + y * y);
-  T t;
   if (apq == T(0)) {
-    t = T(0);
+    c = T(1);
+    s = T(0);
   } else if (x >= T(0)) {
     const T d = r + x;
-    t = y / (d == T(0) ? T(1) : d);
+    const T t = y / (d == T(0) ? T(1) : d);
+    c = rsqrt_t(T(1) + t * t);
+    s = t * c;
   } else {
-    t = (r - x) / y;
+    // r - x >= 2 |x| > 0; the rotation is near a swap when |u| is small
+    const T u = y / (r - x);
+    const T h = rsqrt_t(T(1) + u * u);
+    c = abs_t(u) * h;
+    s = copysign_t(h, u);
   }
-  c = rsqrt_t(T(1) + t * t);
-  s = t * c;
 }
 
 // ---------------------------------------------------------------- n <= 8

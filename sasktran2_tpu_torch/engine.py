@@ -1,5 +1,5 @@
 """The radiative transfer Engine of the PyTorch port (counterpart of
-``sasktran2_tpu/engine.py``), for the scalar wavelength-minor fast path.
+``sasktran2_tpu/engine.py``).
 
 Same contract as the JAX engine: construct with (config, model geometry,
 viewing geometry), then ``calculate_radiance(atmosphere)`` returns a
@@ -10,22 +10,29 @@ in the port's own copies of the JAX package's host modules; the solve runs
 in torch on the GPU (or on the CPU when the caller asks for it), with the
 Thomas and Jacobi work in the CUDA kernels of ``ops/`` on the GPU.
 
+Two routes, chosen at each call as the JAX engine chooses them
+(``_twostream_fast_ok``, ``_polarized_fast_ok``): the wavelength-minor
+fast paths (scalar: ``rt/disco_nstream.py``, ``rt/twostream.py``;
+polarized: ``rt/disco_vec_minor.py``) and the generic per-wavelength route
+(``rt/disco.solve_plane_parallel``, ``rt/disco_vec.
+solve_plane_parallel_vector``, batched over the wavelengths in the leading
+axis), which takes polarized radiance with flux observers, over a BRDF or
+with DO / two-stream thermal emission, and scalar BRDF surfaces on limb
+rays or with flux observers.
+
 Covered: 1D geometry (plane-parallel, pseudo-spherical, spherical) with
 ground-viewing (``GroundViewingSolar``, ``SolarAnglesObserverLocation``)
-and limb (``TangentAltitudeSolar``) rays; DO multiple scatter (the
-two-stream solver at nstr = 2 for scalar ground-viewing rays, the N-stream
-solver otherwise, and for limb rays the DO source evaluated along the
-traced rays on a grid of ``num_do_sza`` solar zenith angles); DO, exact or
-table single scatter; Standard and volume-emission-rate emission;
-occultation; the line-of-sight optical depth; a Lambertian surface, and on
-scalar ground-viewing rays a BRDF (through its azimuth moments, every
-azimuth mode solved); DO and two-stream thermal emission on scalar
-ground-viewing, limb and flux outputs; scalar radiance with flux observers
-(upwelling, downwelling, actinic and divergence fluxes from the m = 0
-level fields); and polarized (I, Q, U) radiance, ground-viewing and limb,
-through the wavelength-minor vector solver, with the Stokes-basis
-rotations. Everything else raises ``NotImplementedError`` naming the
-ROADMAP slice that will bring it.
+and limb (``TangentAltitudeSolar``) rays; DO multiple scatter (and for
+limb rays the DO source evaluated along the traced rays on a grid of
+``num_do_sza`` solar zenith angles); DO, exact or table single scatter;
+Standard and volume-emission-rate emission; occultation; the
+line-of-sight optical depth; Lambertian and BRDF surfaces; DO and
+two-stream thermal emission; upwelling, downwelling, actinic and
+divergence fluxes at flux observers; scalar and polarized (I, Q, U)
+radiance with the Stokes-basis rotations. Successive orders, 2D
+geometry, ``mesh=``, viewing-geometry containers and
+EngineIntegratedLineShape raise ``NotImplementedError`` naming their
+ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from .dataset import DataArray, Dataset
 from .device import resolve_device, resolve_dtype
 from .geometry import Geometry1D
 from .params import core_from_reference
-from .rt import disco, do_source, singlescatter
+from .rt import disco, disco_vec, do_source, singlescatter
 from .rt.disco_nstream import solve_nstream, solve_nstream_m0_levels
 from .rt.disco_vec import NS
 from .rt.disco_vec_minor import build_vector_minor_tables, solve_nstream_vector
@@ -170,9 +177,7 @@ class Engine:
 
     def _check_slice(self):
         """Raise for every configuration outside the ported slices; the
-        message names the ROADMAP Queue 1 slice for it. The JAX package
-        sends these to its generic per-wavelength route or to solvers the
-        port does not have yet."""
+        message names the ROADMAP Queue 1 slice for it."""
         cfg = self._config
         if not isinstance(self._geometry, Geometry1D):
             msg = (
@@ -188,23 +193,9 @@ class Engine:
                 "takes sasktran2_tpu_torch.ViewingGeometry)",
                 "ROADMAP, Next: ViewingGeometryContainer",
             )
-        if cfg.num_stokes == 3 and self._flux_observers:
-            raise _not_ported(
-                "polarized radiance with flux observers (the generic "
-                "per-wavelength route)",
-                "ROADMAP Queue 1 slice 9, generic route",
-            )
         if cfg.multiple_scatter_source == MultipleScatterSource.SuccessiveOrders:
             raise _not_ported(
                 "successive orders", "ROADMAP Queue 1 slice 10, SO"
-            )
-        if cfg.num_stokes == 3 and self._thermal_do:
-            # the JAX package sends it to its generic route
-            # (``_polarized_fast_ok``, ``engine.py:1290``)
-            raise _not_ported(
-                "polarized DO and two-stream thermal emission (scalar "
-                "thermal emission runs on the fast path since old slice 4)",
-                "ROADMAP Queue 1 slice 9, generic route",
             )
         if cfg.spectral_grid_mode == SpectralGridMode.EngineIntegratedLineShape:
             raise _not_ported(
@@ -221,25 +212,35 @@ class Engine:
                     "ROADMAP, Next: ViewingGeometryContainer",
                 )
 
-    def _check_brdf(self):
-        """A BRDF surface runs on the scalar fast path's ground-viewing DO
-        groups only, as in the JAX package (``_twostream_fast_ok``,
-        ``engine.py:1250-1269``); BRDF limb scans, BRDF flux observers and
-        polarized BRDF take its generic route."""
-        where = None
-        if self._polarized:
-            where = "polarized radiance over a BRDF surface"
-        elif self._limb_groups:
-            where = "BRDF surfaces on limb rays"
-        elif self._flux_observers:
-            where = "BRDF surfaces with flux observers"
-        elif not self._do_groups:
-            where = "BRDF surfaces without a DO source"
-        if where is not None:
-            raise _not_ported(
-                f"{where} (the generic per-wavelength route)",
-                "ROADMAP Queue 1 slice 9, generic route",
-            )
+    def _twostream_fast_ok(self):
+        """Whether the scalar wavelength-minor fast path takes this call
+        (``sasktran2_tpu/engine.py:1250-1269``): scalar radiance whose
+        multiple scatter is all DO-group solves (ground-viewing or limb),
+        with a BRDF only where there are no limb rays and no flux
+        observers. Everything else takes the generic route."""
+        brdf_ok = self._brdf is None or (
+            not self._limb_groups and not self._flux_observers
+        )
+        return (
+            self._config.num_stokes == 1
+            and self._needs_do
+            and bool(self._do_groups or self._limb_groups)
+            and brdf_ok
+        )
+
+    def _polarized_fast_ok(self):
+        """Whether the polarized wavelength-minor fast path takes this
+        call (``sasktran2_tpu/engine.py:1271-1293``): DO-group solves,
+        ground-viewing or limb, over a Lambertian surface, with no flux
+        observers and no DO or two-stream thermal source."""
+        return (
+            self._config.num_stokes == 3
+            and self._needs_do
+            and bool(self._do_groups or self._limb_groups)
+            and not self._flux_observers
+            and self._brdf is None
+            and not self._thermal_do
+        )
 
     # ------------------------------------------------------------------
     def _stokes_basis_rotations(self):
@@ -387,9 +388,14 @@ class Engine:
             )
             self._do_groups.append((idx, tables, user_up, user_azi))
 
-        # flux observers (scalar only; _check_slice refuses polarized
-        # ones): the m = 0 level fields of a solve per cos_sza,
-        # interpolated from the TOA-first boundaries onto the observers
+        # flux observers: the m = 0 level fields of a solve per cos_sza,
+        # interpolated from the TOA-first boundaries onto the observers.
+        # Polarized fluxes come from the generic vector solve's I slices,
+        # so their tables are the generic route's vector tables
+        flux_tables = (
+            disco_vec.build_vector_mode_tables if self._polarized
+            else disco.build_mode_tables
+        )
         alts = self._geometry.altitudes()
         self._flux_groups = []
         for mu0 in sorted({float(o.cos_sza) for o in self._flux_observers}):
@@ -401,7 +407,7 @@ class Engine:
             interp = linear_interpolating_matrix(
                 alts, np.array([e[1] for e in obs]), "extend",
             )[:, ::-1]  # [nobs, P+1] in TOA-first boundary order
-            tables = disco.build_mode_tables(
+            tables = flux_tables(
                 nstr, nstr, mu0, np.array([0.5]), num_azimuth=1,
             )
             self._flux_groups.append(
@@ -452,6 +458,26 @@ class Engine:
         self._limb_groups.append(
             (all_idx, [limb_tables(float(m0)) for m0 in sza_grid])
         )
+
+    @functools.cached_property
+    def _generic_tables(self):
+        """The generic route's tables of each ground-viewing group and
+        of each limb group's SZA-grid points: the scalar groups' own
+        ``ModeTables``; for a polarized engine the ``VectorModeTables`` of
+        the same geometry (``engine.py:487-543``), built at the first
+        generic call."""
+        if not self._polarized:
+            return ([t for _, t, _, _ in self._do_groups],
+                    [tl for _, tl in self._limb_groups])
+
+        def vector(t):
+            return disco_vec.build_vector_mode_tables(
+                self._do_nstr, self._do_nstr, t.mu0, t.user_mu,
+                num_azimuth=t.kernel_a.shape[0],
+            )
+
+        return ([vector(t) for _, t, _, _ in self._do_groups],
+                [[vector(t) for t in tl] for _, tl in self._limb_groups])
 
     @functools.cached_property
     def _chapman(self):
@@ -572,41 +598,27 @@ class Engine:
         """The solvers' wavelength-minor layer inputs: dtau/omega [P, W]
         and beta [L, P, W] (scalar) or the greeks [4, L, P, W]
         (polarized)."""
-        if self._polarized:
-            legs = torch.stack([
-                core[k] for k in ("leg_coeff", "leg_a2", "leg_a3", "leg_b1")
-            ])
-            dtau, omega, beta = self._layer_optical(
-                core["extinction"], core["ssa"], legs
-            )
-            beta_t = beta.permute(0, 3, 2, 1)        # [4, L, P, W]
-        else:
-            dtau, omega, beta = self._layer_optical(
-                core["extinction"], core["ssa"], core["leg_coeff"]
-            )
-            beta_t = beta.permute(2, 1, 0)           # [L, P, W]
+        dtau, omega, beta = self._layers_leading(core)
+        beta_t = (beta.permute(0, 3, 2, 1) if self._polarized
+                  else beta.permute(2, 1, 0))
         return dtau.movedim(0, -1), omega.movedim(0, -1), beta_t
 
     def _thermal_kw(self, core):
         """The solvers' thermal arguments under DO or two-stream emission
         (``engine.py:1440-1450``): the level emission at each TOA-first
         layer's top and bottom, [P, W], and the surface emission [W]."""
-        if not self._thermal_do:
-            return {}
-        emis = core["emission"]                     # [W, A]
-        return {
-            "thermal_b0": torch.flip(emis[..., 1:], (-1,)).movedim(0, -1),
-            "thermal_b1_bottom": torch.flip(
-                emis[..., :-1], (-1,)).movedim(0, -1),
-            "surface_emission": core["surface_emission"],
-        }
+        kw = self._thermal_kw_leading(core)
+        for k in ("thermal_b0", "thermal_b1_bottom"):
+            if k in kw:
+                kw[k] = kw[k].movedim(0, -1)
+        return kw
 
     def _do_solve(self, layers, core, tables, user_up, user_azi, **kw):
-        """One DO group's solve: the vector solver for a polarized engine,
-        the two-stream solver for a scalar ground-viewing group at
-        nstr = 2 over a Lambertian ground, the N-stream solver otherwise
-        (the limb groups' solves, ``return_internal=True``, need its level
-        fields at every nstr, and a BRDF its azimuth moments;
+        """One DO group's solve on the fast path: the vector solver for a
+        polarized engine, the two-stream solver for a scalar ground-viewing
+        group at nstr = 2 over a Lambertian ground, the N-stream solver
+        otherwise (the limb groups' solves, ``return_internal=True``, need
+        its level fields at every nstr, and a BRDF its azimuth moments;
         ``engine.py:1460-1466``). Radiance [U, W] (scalar) or [U, 3, W]
         (polarized)."""
         dtau_t, omega_t, beta_t = layers
@@ -630,68 +642,156 @@ class Engine:
             user_azi, **kw,
         )
 
+    def _layers_leading(self, core):
+        """The generic route's batch-leading layer inputs: dtau/omega
+        [W, P] and beta [W, P, L] (scalar) or the greeks (a1, a2, a3, b1)
+        stacked, [4, W, P, L] (polarized)."""
+        legs = core["leg_coeff"]
+        if self._polarized:
+            legs = torch.stack([
+                core[k] for k in ("leg_coeff", "leg_a2", "leg_a3", "leg_b1")
+            ])
+        return self._layer_optical(core["extinction"], core["ssa"], legs)
+
+    def _thermal_kw_leading(self, core):
+        """The generic route's thermal arguments under DO or two-stream
+        emission (``engine.py:1440-1450``): the level emission at each
+        TOA-first layer's top and bottom, [W, P], and the surface emission
+        [W]."""
+        if not self._thermal_do:
+            return {}
+        emis = core["emission"]                     # [W, A]
+        return {
+            "thermal_b0": torch.flip(emis[..., 1:], (-1,)),
+            "thermal_b1_bottom": torch.flip(emis[..., :-1], (-1,)),
+            "surface_emission": core["surface_emission"],
+        }
+
+    def _generic_solve(self, layers, core, tables, user_up, user_azi, **kw):
+        """One solve of the generic route (``engine.py:822-895``,
+        ``:975-1057``): ``disco.solve_plane_parallel`` or, polarized,
+        ``disco_vec.solve_plane_parallel_vector``, batched over the
+        wavelengths in the leading axis. Radiance [W, U] or [W, U, 3]."""
+        dtau, omega, beta = layers
+        kw = dict(
+            include_ss=self._do_include_ss,
+            chapman=self._chapman.get(tables.mu0),
+            f0=core["solar_irradiance"],
+            **{"num_azimuth": self._num_azi_eff, **kw},
+        )
+        if self._polarized:
+            return disco_vec.solve_plane_parallel_vector(
+                dtau, omega, *beta, core["albedo"], tables, user_up,
+                user_azi, **kw,
+            )
+        return disco.solve_plane_parallel(
+            dtau, omega, beta, core["albedo"], tables, user_up, user_azi,
+            **kw,
+        )
+
     def _do_groups_batched(self, core):
         """DO radiance [W, nlos] (scalar) or [W, nlos, 3] (polarized) of
         the whole wavelength batch: the ground-viewing groups
         (``engine.py:1325-1365``, ``:1416``) and the limb groups
-        (``engine.py:1367-1413``, ``:1479-1524``)."""
+        (``engine.py:1367-1413``, ``:1479-1524``), on the wavelength-minor
+        fast path where ``_twostream_fast_ok`` or ``_polarized_fast_ok``
+        holds, else on the generic route (``engine.py:822-895``,
+        ``:975-1057``). As in the reference, the generic route gives a BRDF
+        to the ground-viewing groups only: its limb solves see the core
+        albedo (0 under a MODIS or Kokhanovsky surface)."""
         ext = core["extinction"]
-        layers = self._layers(core)
         W = ext.shape[0]
         tail = (NS,) if self._polarized else ()
         rad = torch.zeros((W, len(self._rays)) + tail, dtype=ext.dtype,
                           device=ext.device)
-        thermal_kw = self._thermal_kw(core)
         brdf_kw = {} if self._brdf is None else {
             "brdf": self._brdf, "brdf_args": core["brdf_args"],
         }
-        for idx, tables, user_up, user_azi in self._do_groups:
-            r = self._do_solve(layers, core, tables, user_up, user_azi,
-                               **thermal_kw, **brdf_kw)
-            rad = rad.index_add(
-                1, torch.as_tensor(idx, device=ext.device), r.movedim(-1, 0)
+        if self._fast_route:
+            layers = self._layers(core)
+            thermal_kw = self._thermal_kw(core)
+
+            def solve(tables, user_up, user_azi, **kw):
+                return self._do_solve(layers, core, tables, user_up,
+                                      user_azi, **kw).movedim(-1, 0)
+
+            source = (
+                do_source.ms_source_along_rays_vec_minor if self._polarized
+                else do_source.ms_source_along_rays_minor
             )
-        source = (
-            do_source.ms_source_along_rays_vec_minor if self._polarized
-            else do_source.ms_source_along_rays_minor
-        )
-        for idx, tables_list in self._limb_groups:
-            j_in, j_out = [], []
-            for tables in tables_list:
+
+            def limb_source(tables):
                 _, internal = self._do_solve(
-                    layers, core, tables, np.array([True]), np.array([0.0]),
-                    return_internal=True, **thermal_kw,
+                    layers, core, tables, np.array([True]),
+                    np.array([0.0]), return_internal=True, **thermal_kw,
                 )
-                ji, jo = source(
-                    internal, self._limb_rows, self._do_include_ss
-                )                                   # [R, S(, 3), W]
-                j_in.append(ji.movedim(-1, 0))
-                j_out.append(jo.movedim(-1, 0))
-            if len(tables_list) == 1:
-                j_in, j_out = j_in[0], j_out[0]
-            else:
-                wts = torch.as_tensor(
-                    self._limb_sza_weights, dtype=ext.dtype, device=ext.device
-                )                                   # [R, S+1, n_sza]
-                S = j_in[0].shape[2]
-                eq = "wrscn,rsn->wrsc" if self._polarized else "wrsn,rsn->wrs"
-                j_in = torch.einsum(eq, torch.stack(j_in, -1), wts[:, :S])
-                j_out = torch.einsum(
-                    eq, torch.stack(j_out, -1), wts[:, 1:S + 1]
+                ji, jo = source(internal, self._limb_rows,
+                                self._do_include_ss)   # [R, S(, 3), W]
+                return ji.movedim(-1, 0), jo.movedim(-1, 0)
+
+            do_tables = [t for _, t, _, _ in self._do_groups]
+            limb_tables = [tl for _, tl in self._limb_groups]
+        else:
+            layers = self._layers_leading(core)
+            thermal_kw = self._thermal_kw_leading(core)
+
+            def solve(tables, user_up, user_azi, **kw):
+                return self._generic_solve(layers, core, tables, user_up,
+                                           user_azi, **kw)
+
+            source = (
+                do_source.ms_source_along_rays_vec if self._polarized
+                else do_source.ms_source_along_rays
+            )
+
+            def limb_source(tables):
+                _, internal = self._generic_solve(
+                    layers, core, tables, np.array([True]),
+                    np.array([0.0]), return_internal=True, **thermal_kw,
                 )
-            if self._polarized:
-                # one line-of-sight integral per Stokes component
-                ms_rad = singlescatter.integrate_od_source(
-                    ext, j_in.permute(3, 0, 1, 2), j_out.permute(3, 0, 1, 2),
-                    self._traced,
-                ).permute(1, 2, 0)                  # [W, nlos, 3]
-            else:
-                ms_rad = singlescatter.integrate_od_source(
-                    ext, j_in, j_out, self._traced
-                )                                   # [W, nlos]
+                return source(internal, self._limb_rows, self._do_include_ss)
+
+            do_tables, limb_tables = self._generic_tables
+
+        for (idx, _, user_up, user_azi), tables in zip(self._do_groups,
+                                                       do_tables):
+            r = solve(tables, user_up, user_azi, **thermal_kw, **brdf_kw)
+            rad = rad.index_add(
+                1, torch.as_tensor(idx, device=ext.device), r
+            )
+        for (idx, _), tables_list in zip(self._limb_groups, limb_tables):
+            sources = [limb_source(tables) for tables in tables_list]
+            ms_rad = self._limb_radiance(
+                ext, [s[0] for s in sources], [s[1] for s in sources]
+            )
             idx_t = torch.as_tensor(idx, device=ext.device)
             rad = rad.index_add(1, idx_t, ms_rad.index_select(1, idx_t))
         return rad
+
+    def _limb_radiance(self, ext, j_in, j_out):
+        """Line-of-sight integral [W, nlos(, 3)] of the DO source at the
+        segment ends, one [W, R, S(, 3)] pair per SZA-grid point,
+        interpolated per boundary onto the rays' local solar zenith angles
+        where the grid has more than one point."""
+        if len(j_in) == 1:
+            j_in, j_out = j_in[0], j_out[0]
+        else:
+            wts = torch.as_tensor(
+                self._limb_sza_weights, dtype=ext.dtype, device=ext.device
+            )                                   # [R, S+1, n_sza]
+            S = j_in[0].shape[2]
+            eq = "wrscn,rsn->wrsc" if self._polarized else "wrsn,rsn->wrs"
+            j_in = torch.einsum(eq, torch.stack(j_in, -1), wts[:, :S])
+            j_out = torch.einsum(eq, torch.stack(j_out, -1), wts[:, 1:S + 1])
+        if self._polarized:
+            # one line-of-sight integral per Stokes component
+            return singlescatter.integrate_od_source(
+                ext, j_in.permute(3, 0, 1, 2), j_out.permute(3, 0, 1, 2),
+                self._traced,
+            ).permute(1, 2, 0)                  # [W, nlos, 3]
+        return singlescatter.integrate_od_source(
+            ext, j_in, j_out, self._traced
+        )                                       # [W, nlos]
 
     def _flux_groups_batched(self, core):
         """Fluxes [W, ntypes, nobs] of the whole wavelength batch from the
@@ -718,20 +818,42 @@ class Engine:
         ext = core["extinction"]
         ssa = core["ssa"]
         f0 = core["solar_irradiance"]
-        dtau_t, omega_t, beta_t = self._layers(core)
         W = ext.shape[0]
         nobs = len(self._flux_observers)
         flux = torch.zeros((W, len(cfg.flux_types), nobs), dtype=ext.dtype,
                            device=ext.device)
         two_pi = 2.0 * math.pi
-        thermal_kw = self._thermal_kw(core)
+        if self._fast_route:
+            dtau_t, omega_t, beta_t = self._layers(core)
+            thermal_kw = self._thermal_kw(core)
+
+            def m0_levels(tables):
+                return solve_nstream_m0_levels(
+                    dtau_t, omega_t, beta_t, core["albedo"], tables,
+                    include_ss=self._do_include_ss,
+                    chapman=self._chapman.get(tables.mu0),
+                    f0=f0, **thermal_kw,
+                )
+        else:
+            layers = self._layers_leading(core)
+            thermal_kw = self._thermal_kw_leading(core)
+
+            def m0_levels(tables):
+                # the generic route's m = 0 solve (``engine.py:1105-1133``);
+                # polarized fluxes are the scalar formulas on the I slices
+                # of the vector solve's stream fields
+                _, internal = self._generic_solve(
+                    layers, core, tables, np.array([True]), np.array([0.0]),
+                    return_internal=True, num_azimuth=1, **thermal_kw,
+                )
+                step = NS if self._polarized else 1
+                lv = {k: v[0][..., ::step].permute(1, 2, 0)
+                      for k, v in internal["levels"].items()}  # [P, N, W]
+                return (lv, internal["t_top"].movedim(-1, 0),
+                        internal["t_ground"])
+
         for idx, tables, interp in self._flux_groups:
-            lv, t_top, t_ground = solve_nstream_m0_levels(
-                dtau_t, omega_t, beta_t, core["albedo"], tables,
-                include_ss=self._do_include_ss,
-                chapman=self._chapman.get(tables.mu0),
-                f0=f0, **thermal_kw,
-            )
+            lv, t_top, t_ground = m0_levels(tables)
             wq = torch.as_tensor(tables.w, dtype=ext.dtype, device=ext.device)
             wmu = wq * torch.as_tensor(tables.mu, dtype=ext.dtype,
                                        device=ext.device)
@@ -850,8 +972,10 @@ class Engine:
             self._config.input_validation_mode,
         )
         self._brdf = atmosphere.surface.brdf
-        if self._brdf is not None:
-            self._check_brdf()
+        # the route, as the JAX engine chooses it at trace time
+        self._fast_route = (
+            self._twostream_fast_ok() or self._polarized_fast_ok()
+        )
         self._num_azi_eff = self._effective_num_azimuth(core_np)
         mappings = atmosphere.storage.derivative_mappings
         needs_jac = atmosphere.calculate_derivatives and (

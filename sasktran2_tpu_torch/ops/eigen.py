@@ -49,3 +49,30 @@ def stacked_round_tables(npad: int):
             sign_t[r, p], sign_t[r, q] = 1.0, -1.0
             pair_t[r, p] = pair_t[r, q] = k
     return p_t, q_t, perm_t, sign_t, pair_t
+
+
+def jacobi_eigh(a, sweeps: int | None = None):
+    """Eigendecomposition of a batch of symmetric matrices, batch-leading
+    (counterpart of ``sasktran2_tpu/ops/eigen.py:74-187``).
+
+    ``a`` [..., P, n, n] (or [n, n]) -> (eigenvalues [..., P, n]
+    UNSORTED, eigenvectors [..., P, n, n], columns in eigenvalue order).
+    The leading batch is flattened and moved to the minor axis, [P, n, n,
+    B] with the layer axis P kept, and solved by
+    ``lanes.lane_jacobi_eigh_scan``: the Jacobi kernel on the card for a
+    padded order of at most 32, the reference's odd-n padding, its sweep
+    counts (7 in float32, 10 in float64) and the implicit eigh adjoint.
+    """
+    from .lanes import lane_jacobi_eigh_scan
+
+    squeeze = a.ndim == 2
+    if squeeze:
+        a = a[None]
+    lead, (P, n) = a.shape[:-3], a.shape[-3:-1]
+    lanes = a.reshape((-1, P, n, n)).permute(1, 2, 3, 0)
+    w, v = lane_jacobi_eigh_scan(lanes, sweeps)
+    w = w.permute(2, 0, 1).reshape(lead + (P, n))
+    v = v.permute(3, 0, 1, 2).reshape(lead + (P, n, n))
+    if squeeze:
+        return w[0], v[0]
+    return w, v

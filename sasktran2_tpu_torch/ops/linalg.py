@@ -1,5 +1,7 @@
 """Stable exponential divided differences (counterpart of ``ediff`` and
-``ddiff2`` in ``sasktran2_tpu/ops/linalg.py:17-63``).
+``ddiff2`` in ``sasktran2_tpu/ops/linalg.py:17-63``), and the generic
+route's batch-leading solves (``cholesky``, ``solve_upper``,
+``block_tridiag_solve``) on the lane kernels of ``ops/lanes.py``.
 
 Every ``torch.where`` here keeps both of its branches finite, because the
 gradient of the branch that is not taken is still evaluated.
@@ -44,3 +46,73 @@ def ddiff2(a, b, c, delta):
     mean = (a + b + c) / 3.0
     series = 0.5 * delta * delta * torch.exp(-mean * delta)
     return torch.where(small, series, exact)
+
+
+# ---------------------------------------------------------------------------
+# Batch-leading dense and block-tridiagonal solves on the lane kernels.
+# ---------------------------------------------------------------------------
+
+
+def _to_lanes(x, core: int):
+    """[..., *core] -> ([*core, B], leading shape): the leading batch
+    flattened onto the minor axis."""
+    lead = x.shape[: x.ndim - core]
+    flat = x.reshape((-1,) + x.shape[x.ndim - core:])
+    return flat.permute(*range(1, core + 1), 0), lead
+
+
+def _from_lanes(y, lead):
+    """[*core, B] -> [*lead, *core]."""
+    return y.permute(y.ndim - 1, *range(y.ndim - 1)).reshape(
+        lead + y.shape[:-1])
+
+
+def cholesky(a):
+    """Lower Cholesky factor of SPD matrices [..., n, n], by the port's
+    unrolled lane Cholesky on the batch moved to the minor axis (no
+    cuSOLVER batch limit on the card)."""
+    from .lanes import lane_cholesky
+
+    lanes, lead = _to_lanes(a, 2)
+    return _from_lanes(lane_cholesky(lanes), lead)
+
+
+def solve_upper(u, b):
+    """Solve U x = b for upper-triangular U [..., n, n] and b [..., n, m]
+    (batch shapes broadcast), by unrolled back substitution on the lane
+    layout."""
+    from .lanes import lane_solve_upper
+
+    batch = torch.broadcast_shapes(u.shape[:-2], b.shape[:-2])
+    u = u.expand(batch + u.shape[-2:])
+    b = b.expand(batch + b.shape[-2:])
+    ul, lead = _to_lanes(u, 2)
+    bl, _ = _to_lanes(b, 2)
+    return _from_lanes(lane_solve_upper(ul, bl), lead)
+
+
+def block_tridiag_solve(lower, diag, upper, rhs):
+    """Solve the batched block-tridiagonal system ``lower[p] x[p-1] +
+    diag[p] x[p] + upper[p] x[p+1] = rhs[p]`` (``lower[0]`` and
+    ``upper[P-1]`` ignored; counterpart of
+    ``sasktran2_tpu/ops/linalg.py:92-109``).
+
+    lower/diag/upper [..., P, K, K], rhs [..., P, K]; leading batch shapes
+    broadcast. The batch is flattened onto the minor axis and solved by
+    ``lanes.lane_block_thomas_solve``: the Thomas kernel on the card for
+    K <= 24, the torch-op loop above that, with the linear-system adjoint.
+    The reference's block cyclic reduction (its route from P >= 8) is the
+    same function, computed in log2 P levels for the TPU; in float64 the
+    two agree to roundoff and it is not ported.
+    """
+    from .lanes import lane_block_thomas_solve
+
+    batch = torch.broadcast_shapes(diag.shape[:-3], lower.shape[:-3],
+                                   upper.shape[:-3], rhs.shape[:-2])
+    P, K = diag.shape[-3], diag.shape[-1]
+    blocks = [
+        _to_lanes(t.expand(batch + (P, K, K)), 3)[0]
+        for t in (lower, diag, upper)
+    ]
+    r, lead = _to_lanes(rhs.expand(batch + (P, K)), 2)
+    return _from_lanes(lane_block_thomas_solve(*blocks, r), lead)

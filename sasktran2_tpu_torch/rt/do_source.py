@@ -231,7 +231,9 @@ def ms_source_along_rays_vec_minor(internal, rows, include_ss: bool):
     Per layer, one [J * 3, 3 * M * L] @ [3 * M * L, W] product per field
     (layer top, layer bottom, direct beam) gives every endpoint's (I, Q, U)
     at once, where the reference gathers [M, R, S, L, W] two rays at a
-    time. Padded segments get zero.
+    time. A solve with a thermal source (the generic route's, through
+    ``ms_source_along_rays_vec``) adds its unpolarized (1 - omega) B to I.
+    Padded segments get zero.
     """
     levels = internal["levels"]
     omega = internal["omega"]                       # [P, W]
@@ -288,6 +290,17 @@ def ms_source_along_rays_vec_minor(internal, rows, include_ss: bool):
         decay = (internal["sbar"] * internal["dtau"])[:, None, :]
         y = y + (coef @ c_beam) * amp * torch.exp(-decay * frac)
     y = y.reshape(P * J, 3, W)
+    thermal = internal.get("thermal")
+    if thermal is not None:
+        # the unpolarized thermal source (1 - omega) b0 exp(-b1 tau) adds
+        # to I at the endpoint's depth in its layer
+        b0, b1, _ = thermal
+        th = ((1.0 - omega) * b0)[:, None, :] * torch.exp(
+            -(b1 * internal["dtau"])[:, None, :] * const(rows["frac"])[..., None]
+        )                                           # [P, J, W]
+        e0 = torch.zeros(3, dtype=dt, device=dev)
+        e0[0] = 1.0
+        y = y + th.reshape(P * J, 1, W) * e0[:, None]
     flat = torch.cat([y, torch.zeros_like(y[:1])])
     R, S = rows["row_in"].shape
 
@@ -296,3 +309,87 @@ def ms_source_along_rays_vec_minor(internal, rows, include_ss: bool):
         return flat.index_select(0, idx).reshape(R, S, 3, W)
 
     return lookup(rows["row_in"]), lookup(rows["row_out"])
+
+
+# ---------------------------------------------------------------------------
+# The generic route's sources: the batch-leading internals of
+# ``rt.disco.solve_plane_parallel`` and ``rt.disco_vec.
+# solve_plane_parallel_vector`` in the lane layout of the evaluations above.
+# ---------------------------------------------------------------------------
+
+
+def _lane_thermal(thermal):
+    if thermal is None:
+        return None
+    b0, b1, surf = thermal
+    return b0.movedim(-1, 0), b1.movedim(-1, 0), surf
+
+
+def ms_source_along_rays(internal, rows, include_ss: bool):
+    """The scalar DO source per unit optical depth at the entrance and
+    exit of every traced segment from the generic solver's internals
+    (counterpart of ``sasktran2_tpu/rt/do_source.py:547-633``):
+    (j_entrance, j_exit), each [W, R, S].
+
+    ``internal`` comes from ``disco.solve_plane_parallel(...,
+    return_internal=True)`` on a batch of one axis W (levels [M, W, P, N],
+    omega [W, P], beta [W, P, L]); ``rows`` from ``build_layer_rows`` on
+    ``build_ray_angular_tables``. The reference gathers every segment's
+    layer coefficients; here the internals move to the wavelength-minor
+    layout and go through the per-layer evaluation of
+    ``ms_source_along_rays_minor``, which computes the same sum. Padded
+    segments get zero."""
+    lane = {
+        "levels": {k: v.movedim(1, -1) for k, v in internal["levels"].items()},
+        "omega": internal["omega"].movedim(-1, 0),
+        "beta": internal["beta"].permute(2, 1, 0),
+        "lam": internal["lam"],
+        "lam_sun": internal["lam_sun"],
+        "parity": internal["parity"],
+        "w_quad": internal["w_quad"],
+        "t_top": internal["t_top"].movedim(-1, 0),
+        "sbar": internal["sbar"].movedim(-1, 0),
+        "dtau": internal["dtau"].movedim(-1, 0),
+        "f0": internal["f0"],
+        "thermal": _lane_thermal(internal.get("thermal")),
+    }
+    ji, jo = ms_source_along_rays_minor(lane, rows, include_ss)
+    return ji.movedim(-1, 0), jo.movedim(-1, 0)
+
+
+def ms_source_along_rays_vec(internal, rows, include_ss: bool):
+    """The polarized DO source per unit optical depth at the entrance and
+    exit of every traced segment, in the ray meridian frame, from the
+    generic vector solver's internals (counterpart of
+    ``sasktran2_tpu/rt/do_source.py:251-384``): (j_entrance, j_exit), each
+    [W, R, S, 3].
+
+    ``internal`` comes from ``disco_vec.solve_plane_parallel_vector(...,
+    return_internal=True)`` on a batch of one axis W; ``rows`` from
+    ``build_layer_rows`` on ``build_ray_vector_tables``. The stream-sum
+    table S[l, c, (j s)] = w_j Pi_j[s, c] and the parity signs are built
+    from the solve's mode tables, and the evaluation is
+    ``ms_source_along_rays_vec_minor``'s, thermal source included."""
+    pi = np.asarray(internal["pi_stream"])              # [M, L, N, 3, 3]
+    M, L, N = pi.shape[:3]
+    parity = np.asarray(internal["parity"])
+    stream_sum = np.einsum("mljsc,j->mlcjs", pi,
+                           np.asarray(internal["w_quad"])).reshape(
+        M, L, 3, 3 * N)
+    lane = {
+        "levels": {k: v.movedim(1, -1) for k, v in internal["levels"].items()},
+        "omega": internal["omega"].movedim(-1, 0),
+        "greeks": torch.stack(
+            [g.permute(2, 1, 0) for g in internal["greeks"]]),
+        "d0_sun": internal["d0_sun"],
+        "parity": parity,
+        "stream_sum": stream_sum,
+        "par_d": parity[..., None] * np.array([1.0, 1.0, -1.0]),
+        "t_top": internal["t_top"].movedim(-1, 0),
+        "sbar": internal["sbar"].movedim(-1, 0),
+        "dtau": internal["dtau"].movedim(-1, 0),
+        "f0": internal["f0"],
+        "thermal": _lane_thermal(internal.get("thermal")),
+    }
+    ji, jo = ms_source_along_rays_vec_minor(lane, rows, include_ss)
+    return ji.movedim(-1, 0), jo.movedim(-1, 0)

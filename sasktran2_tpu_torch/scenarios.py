@@ -52,6 +52,21 @@ layers) and cos_sza = 0.6; all but the thermal ones use a US76 + Rayleigh
 * ``thermallimb16_case``: the same atmosphere on ``limb_case``'s 20 limb
   rays, with DO single scatter (DO emission requires it).
 
+The cells of the generic per-wavelength route (the configurations the
+JAX engine's gates ``_twostream_fast_ok`` and ``_polarized_fast_ok`` send
+there), all at 4 streams polarized (eigensolves of n = 6, BVP blocks of
+K = 12) but the first:
+
+* generic16: ``smoke_case`` with the fast path's gate replaced by
+  ``lambda: False`` (``chip_smoke.py`` does it), against the same golden
+  file (the generic route computes the same function);
+* ``polbrdf4_case``: ``pol4_case`` over ``brdf16_case``'s MODIS surface,
+  every azimuth mode;
+* ``polflux4_case``: ``pol4_case`` with ``flux16_case``'s six observers
+  and four flux types (12 radiance and 24 flux outputs);
+* ``polthermallimb4_case``: ``thermallimb16_case`` polarized at 4
+  streams, ``POLTHERMAL_NUM_LOS`` lines of sight.
+
 ``POL16_SOLVER_*`` is the solver-level case of the 16-stream polarized
 check: the JAX package cannot compile its polarized engine at 16 streams
 on the CPU, so ``tools/make_torch_golden.py`` stores the inputs and
@@ -77,8 +92,16 @@ GOLDEN_POL16_SOLVER_PATH = os.path.join(DATA, "golden_pol16_solver.npz")
 GOLDEN_BRDF16_PATH = os.path.join(DATA, "golden_brdf16.npz")
 GOLDEN_THERMAL16_PATH = os.path.join(DATA, "golden_thermal16.npz")
 GOLDEN_THERMALLIMB16_PATH = os.path.join(DATA, "golden_thermallimb16.npz")
+GOLDEN_POLBRDF4_PATH = os.path.join(DATA, "golden_polbrdf4.npz")
+GOLDEN_POLFLUX4_PATH = os.path.join(DATA, "golden_polflux4.npz")
+GOLDEN_POLTHERMALLIMB4_PATH = os.path.join(DATA, "golden_polthermallimb4.npz")
 LIMB_TANGENTS_M = np.linspace(10000.0, 80000.0, 20)
 LIMBPOL_NUM_LOS = 3
+POLTHERMAL_NUM_LOS = 20
+# the cases whose Q and U are gated against the largest |I|
+# (``golden_error``'s ``qu_scale``): thermal emission with the sun off
+# polarizes only a trace
+QU_SCALE = {"polthermallimb4": "I"}
 FLUX_ALTITUDES_M = (0.0, 5000.0, 10000.0, 20000.0, 40000.0, 80000.0)
 # the pol16 solver-level case: the four rays of smoke_case, the azimuth
 # modes a Rayleigh atmosphere needs, and the golden file's wavelengths
@@ -112,7 +135,8 @@ def absorber_cross_section():
     return wl, 10.0 ** (-28.0 + 4.0 * s)
 
 
-def smoke_case(sk, dtype: str, wavelengths_nm, num_stokes=1, nstr=16):
+def smoke_case(sk, dtype: str, wavelengths_nm, num_stokes=1, nstr=16,
+               flux_types=None):
     """(config, geometry, viewing, atmosphere) of the case, built from
     ``sk``: the port (``sasktran2_tpu_torch``) or the JAX package
     (``sasktran2_tpu``), whose classes and constituents mirror each
@@ -124,6 +148,7 @@ def smoke_case(sk, dtype: str, wavelengths_nm, num_stokes=1, nstr=16):
         single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
         num_singlescatter_moments=nstr,
         dtype=dtype,
+        **({} if flux_types is None else {"flux_types": flux_types}),
     )
     geometry = _geometry(sk, sk.GeometryType.PlaneParallel)
     viewing = sk.ViewingGeometry()
@@ -313,7 +338,48 @@ def thermallimb16_case(sk, dtype: str, wavelengths_nm):
     )
 
 
-def golden_error(name, got, ref, stokes_axis=-1):
+def polbrdf4_case(sk, dtype: str, wavelengths_nm):
+    """``pol4_case`` over ``brdf16_case``'s MODIS surface."""
+    config, geometry, viewing, atmo = pol4_case(sk, dtype, wavelengths_nm)
+    atmo["surface"] = sk.constituent.MODIS(0.25, 0.15, 0.05)
+    return config, geometry, viewing, atmo
+
+
+def polflux4_case(sk, dtype: str, wavelengths_nm):
+    """``pol4_case`` with ``flux16_case``'s observers and flux types."""
+    config, geometry, viewing, atmo = smoke_case(
+        sk, dtype, wavelengths_nm, num_stokes=3, nstr=4,
+        flux_types=(sk.FluxType.Upwelling, sk.FluxType.Downwelling,
+                    sk.FluxType.Actinic, sk.FluxType.Divergence),
+    )
+    for alt in FLUX_ALTITUDES_M:
+        viewing.add_flux_observer(sk.FluxObserverSolar(0.6, alt))
+    return config, geometry, viewing, atmo
+
+
+def polthermallimb4_case(sk, dtype: str, wavelengths_nm):
+    """``thermallimb16_case`` with ``num_stokes = 3`` at 4 streams, on
+    ``POLTHERMAL_NUM_LOS`` tangent altitudes from 10 to 80 km."""
+    config = sk.Config(
+        num_streams=4,
+        num_stokes=3,
+        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        emission_source=sk.EmissionSource.DiscreteOrdinates,
+        num_singlescatter_moments=4,
+        num_do_sza=2,
+        dtype=dtype,
+    )
+    geometry = _geometry(sk, sk.GeometryType.Spherical)
+    viewing = sk.ViewingGeometry()
+    for talt in np.linspace(10000.0, 80000.0, POLTHERMAL_NUM_LOS):
+        viewing.add_ray(sk.TangentAltitudeSolar(float(talt), 0.4, 2e5, 0.6))
+    return config, geometry, viewing, _thermal_atmosphere(
+        sk, config, geometry, wavelengths_nm
+    )
+
+
+def golden_error(name, got, ref, stokes_axis=-1, qu_scale="own"):
     """The error of ``got`` against the golden ``ref`` by which a case is
     gated: for ``radiance`` and the ``*_flux`` variables the largest error
     relative to the element; for a polarized radiance (three Stokes
@@ -321,7 +387,10 @@ def golden_error(name, got, ref, stokes_axis=-1):
     largest |Q| and |U|, so that a component near zero is not held to
     itself; for ``wf_*`` and gradients the largest error relative to the
     variable's largest magnitude. Where the reference is exactly zero (the
-    divergence flux of a conservative atmosphere) the error is absolute."""
+    divergence flux of a conservative atmosphere) the error is absolute.
+    ``qu_scale="I"`` holds Q and U to the largest |I| instead, for a case
+    whose polarization is only a trace (thermal emission with the sun
+    off)."""
     got = np.asarray(got, dtype=np.float64)
     ref = np.asarray(ref, dtype=np.float64)
     err = np.abs(got - ref)
@@ -334,8 +403,10 @@ def golden_error(name, got, ref, stokes_axis=-1):
     if name == "radiance" and ref.shape[stokes_axis] == 3:
         i_err = np.take(err, 0, stokes_axis) / nonzero(
             np.abs(np.take(ref, 0, stokes_axis)))
-        qu = [np.max(np.take(err, c, stokes_axis)) / nonzero(
-            np.max(np.abs(np.take(ref, c, stokes_axis)))) for c in (1, 2)]
+        scale = {c: np.max(np.abs(np.take(ref, c if qu_scale == "own" else 0,
+                                          stokes_axis))) for c in (1, 2)}
+        qu = [np.max(np.take(err, c, stokes_axis)) / nonzero(scale[c])
+              for c in (1, 2)]
         return float(max(np.max(i_err), *qu))
     if per_element:
         return float(np.max(err / nonzero(np.abs(ref))))

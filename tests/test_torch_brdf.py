@@ -17,7 +17,8 @@ with inputs made from numpy seeds:
 * a BRDF turns the azimuth-mode truncation off: the engine's radiance
   differs from the same solve cut to the phase expansion's 3 modes;
 * BRDF limb scans, BRDF flux observers, polarized BRDF and a BRDF without
-  a DO source raise ``NotImplementedError`` naming their ROADMAP slice."""
+  a DO source take the generic route, as in the JAX package, and match its
+  engine at 1e-10."""
 
 import jax
 import jax.numpy as jnp
@@ -253,37 +254,58 @@ def _ground_viewing(pkg, flux=False):
     return viewing
 
 
-@pytest.mark.parametrize(("case", "match"), [
-    ("limb", "BRDF surfaces on limb rays.*slice 9"),
-    ("flux", "BRDF surfaces with flux observers.*slice 9"),
-    ("polarized", "polarized radiance over a BRDF surface.*slice 9"),
-    ("no_do", "BRDF surfaces without a DO source.*slice 9"),
-])
-def test_brdf_outside_the_fast_path_raises(case, match):
-    """The configurations the JAX package sends to its generic route."""
-    ms = (skt.MultipleScatterSource.NoSource if case == "no_do"
-          else skt.MultipleScatterSource.DiscreteOrdinates)
-    ss = (skt.SingleScatterSource.Exact if case == "no_do"
-          else skt.SingleScatterSource.DiscreteOrdinates)
-    config = skt.Config(
+def _outside_case(pkg, case, ref_atmo=None):
+    """A MODIS surface where the JAX package takes its generic route: a
+    limb ray, a flux observer, polarized radiance, no DO source."""
+    ms = (pkg.MultipleScatterSource.NoSource if case == "no_do"
+          else pkg.MultipleScatterSource.DiscreteOrdinates)
+    ss = (pkg.SingleScatterSource.Exact if case == "no_do"
+          else pkg.SingleScatterSource.DiscreteOrdinates)
+    config = pkg.Config(
         num_streams=4, num_stokes=3 if case == "polarized" else 1,
         multiple_scatter_source=ms, single_scatter_source=ss,
         num_singlescatter_moments=4,
     )
-    geometry = skt.Geometry1D(
+    geometry = pkg.Geometry1D(
         cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
         altitude_grid_m=np.linspace(0.0, 100000.0, 6),
-        geometry_type=skt.GeometryType.Spherical,
+        geometry_type=pkg.GeometryType.Spherical,
     )
-    viewing = (_limb_viewing(skt) if case == "limb"
-               else _ground_viewing(skt, flux=case == "flux"))
-    atmo = skt.Atmosphere(geometry, config, wavelengths_nm=np.array([500.0]))
-    skt.climatology.us76.add_us76_standard_atmosphere(atmo)
-    atmo["rayleigh"] = skt.constituent.Rayleigh()
-    atmo["surface"] = skt.constituent.MODIS(0.25, 0.15, 0.05)
+    viewing = (_limb_viewing(pkg) if case == "limb"
+               else _ground_viewing(pkg, flux=case == "flux"))
+    if ref_atmo is not None:
+        return config, geometry, viewing, atmosphere_from_reference(
+            ref_atmo, geometry, config)
+    atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=np.array([500.0]))
+    pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = pkg.constituent.Rayleigh()
+    atmo["surface"] = pkg.constituent.MODIS(0.25, 0.15, 0.05)
+    return config, geometry, viewing, atmo
+
+
+@pytest.mark.parametrize("case", ["limb", "flux", "polarized", "no_do"])
+def test_brdf_outside_the_fast_path_matches_jax(case):
+    """The configurations the JAX package sends to its generic route take
+    the port's generic route too, with the reference's behaviour: the
+    BRDF reaches only ground-viewing DO groups, so a limb scan, the flux
+    solve and exact single scatter see the core albedo (0 under MODIS),
+    and every output matches at 1e-10."""
+    config, geometry, viewing, atmo = _outside_case(sk, case)
+    ref_engine = sk.Engine(config, geometry, viewing)
+    ref = ref_engine.calculate_radiance(atmo)
+    config, geometry, viewing, atmo_t = _outside_case(skt, case, atmo)
     engine = skt.Engine(config, geometry, viewing, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        engine.calculate_radiance(atmo)
+    got = engine.calculate_radiance(atmo_t)
+    assert not engine._fast_route
+    assert engine._twostream_fast_ok() == ref_engine._twostream_fast_ok()
+    assert engine._polarized_fast_ok() == ref_engine._polarized_fast_ok()
+    assert set(got.keys()) == set(ref.keys())
+    assert any(k.startswith("wf_surface") for k in ref.keys())
+    for key in ref.keys():
+        a, b = got[key], ref[key]
+        assert a.dims == b.dims, key
+        err = _rel_err(a.to_numpy(), b.to_numpy())
+        assert err <= 1e-10, (key, err)
 
 
 def test_brdf_from_reference_maps_every_kernel():

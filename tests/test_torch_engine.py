@@ -6,10 +6,11 @@ streams, 20 altitudes and 3 wavelengths, in plane-parallel geometry
 (constituent atmosphere, Legendre Jacobians on) and pseudo-spherical
 geometry (raw input atmosphere carried over by
 ``params.atmosphere_from_reference``, two solar zenith groups).
-Configurations outside the ported slices (successive orders, polarized
-thermal emission, polarized radiance with flux observers, BRDF limb scans
-and polarized BRDF) raise ``NotImplementedError``; an engine with no
-device named needs a GPU."""
+The configurations the JAX package sends to its generic per-wavelength
+route (polarized thermal emission, polarized radiance with flux
+observers, a BRDF on a limb scan, polarized BRDF) take the port's generic
+route too and match at 1e-10; successive orders raise
+``NotImplementedError``; an engine with no device named needs a GPU."""
 
 import numpy as np
 import pytest
@@ -137,14 +138,6 @@ def _ground_viewing(flux=False):
     (lambda: _config(skt, ms=skt.MultipleScatterSource.SuccessiveOrders),
      _ground_viewing, "successive orders"),
     (lambda: _config(skt, num_stokes=3,
-                     emission_source=skt.EmissionSource.DiscreteOrdinates),
-     _ground_viewing, "thermal emission"),
-    (lambda: _config(skt, num_stokes=3), lambda: _ground_viewing(flux=True),
-     "polarized radiance with flux observers.*slice 9"),
-    (lambda: _config(skt, num_stokes=3,
-                     emission_source=skt.EmissionSource.TwoStream),
-     _limb_viewing, "thermal emission.*slice 4"),
-    (lambda: _config(skt, num_stokes=3,
                      ms=skt.MultipleScatterSource.SuccessiveOrders),
      _ground_viewing, "successive orders.*slice 10"),
 ])
@@ -154,21 +147,99 @@ def test_out_of_slice_raises(config, viewing, match):
         skt.Engine(config(), geometry, viewing(), device="cpu")
 
 
-@pytest.mark.parametrize("num_stokes", [1, 3])
-def test_brdf_surface_raises(num_stokes):
-    """A BRDF surface where the JAX package takes its generic route (a
-    scalar limb scan, polarized radiance) is refused at the call, naming
-    its slice, instead of being treated as Lambertian."""
-    config = _config(skt, num_stokes=num_stokes)
-    geometry = _geometry(skt, "Spherical")
-    atmo = skt.Atmosphere(geometry, config, wavelengths_nm=np.array([500.0]))
-    skt.climatology.us76.add_us76_standard_atmosphere(atmo)
-    atmo["rayleigh"] = skt.constituent.Rayleigh()
-    atmo["surface"] = skt.constituent.MODIS(0.25, 0.15, 0.05)
-    viewing = _limb_viewing() if num_stokes == 1 else _ground_viewing()
+def _assert_matches_jax(engine, got, ref_engine, ref):
+    """Every output of the port's engine call against the JAX engine's to
+    1e-10 of its largest magnitude, and the same route."""
+    assert engine._twostream_fast_ok() == ref_engine._twostream_fast_ok()
+    assert engine._polarized_fast_ok() == ref_engine._polarized_fast_ok()
+    assert set(got.keys()) == set(ref.keys())
+    for name in ref.keys():
+        a, b = got[name], ref[name]
+        assert a.dims == b.dims, name
+        a, b = a.to_numpy(), b.to_numpy()
+        scale = np.max(np.abs(b))
+        err = np.max(np.abs(a - b)) / (scale if scale > 0 else 1.0)
+        assert err <= 1e-10, (name, err)
+
+
+GENERIC_ALTITUDES = np.linspace(0.0, 100000.0, 6)
+
+
+def _generic_case(pkg, num_stokes, emission, viewing, surface, ref=None):
+    """(config, geometry, viewing, atmosphere) of one configuration the
+    JAX package sends to its generic route: the US76 Rayleigh atmosphere
+    on 6 altitudes at 500 nm, plane-parallel for ground-viewing rays and
+    spherical for a limb ray, with a level emission profile under thermal
+    emission (6 altitudes keep the JAX compile of its generic route near
+    20 s)."""
+    kw = {} if emission is None else {
+        "emission_source": getattr(pkg.EmissionSource, emission)}
+    config = _config(pkg, num_stokes=num_stokes, **kw)
+    limb = viewing == "limb"
+    geometry = pkg.Geometry1D(
+        cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
+        altitude_grid_m=GENERIC_ALTITUDES,
+        geometry_type=getattr(
+            pkg.GeometryType, "Spherical" if limb else "PlaneParallel"),
+    )
+    rays = pkg.ViewingGeometry()
+    if limb:
+        rays.add_ray(pkg.TangentAltitudeSolar(20000.0, 0.0, 200000.0, 0.6))
+    else:
+        rays.add_ray(pkg.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
+    if viewing == "flux":
+        rays.add_flux_observer(pkg.FluxObserverSolar(0.6, 10000.0))
+    if ref is not None:
+        return config, geometry, rays, atmosphere_from_reference(
+            ref, geometry, config)
+    atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=np.array([500.0]))
+    pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = pkg.constituent.Rayleigh()
+    if surface == "modis":
+        atmo["surface"] = pkg.constituent.MODIS(0.25, 0.15, 0.05)
+    else:
+        atmo["surface"] = pkg.constituent.LambertianSurface(0.3)
+    if emission is not None:
+        atmo.storage.emission_source[:] = np.linspace(
+            2e-3, 1e-3, len(GENERIC_ALTITUDES))[:, None]
+    return config, geometry, rays, atmo
+
+
+def _run_generic(*case):
+    ref_case = _generic_case(sk, *case)
+    ref_engine = sk.Engine(*ref_case[:3])
+    ref = ref_engine.calculate_radiance(ref_case[3])
+    config, geometry, viewing, atmo = _generic_case(skt, *case,
+                                                    ref=ref_case[3])
     engine = skt.Engine(config, geometry, viewing, device="cpu")
-    with pytest.raises(NotImplementedError, match="BRDF.*slice 9"):
-        engine.calculate_radiance(atmo)
+    got = engine.calculate_radiance(atmo)
+    _assert_matches_jax(engine, got, ref_engine, ref)
+    assert not engine._fast_route
+    return got
+
+
+@pytest.mark.parametrize(("num_stokes", "emission", "viewing"), [
+    (3, "DiscreteOrdinates", "ground"),
+    (3, None, "flux"),
+    (3, "TwoStream", "limb"),
+])
+def test_generic_route_matches_jax(num_stokes, emission, viewing):
+    """Polarized DO thermal emission (ground-viewing), polarized radiance
+    with flux observers and polarized two-stream thermal emission (limb):
+    the JAX package's generic route, which the port takes too."""
+    got = _run_generic(num_stokes, emission, viewing, "lambertian")
+    if viewing == "flux":
+        assert "upwelling_flux" in got
+
+
+@pytest.mark.parametrize("num_stokes", [1, 3])
+def test_brdf_surface_matches_jax(num_stokes):
+    """A BRDF surface where the JAX package takes its generic route (a
+    scalar limb scan, polarized radiance): the limb solves see the core
+    albedo, 0 under MODIS; polarized ground-viewing rays see the BRDF."""
+    viewing = "limb" if num_stokes == 1 else "ground"
+    got = _run_generic(num_stokes, None, viewing, "modis")
+    assert any(k.startswith("wf_surface") for k in got.keys())
 
 
 @pytest.mark.parametrize("foreign", ["geometry", "viewing", "atmosphere"])

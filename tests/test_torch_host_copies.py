@@ -180,6 +180,63 @@ def test_vector_tables_equal(nstr, nleg, mu0, num_azimuth):
         )
 
 
+@pytest.mark.parametrize(("nstr", "nleg", "mu0", "num_azimuth"),
+                         [(2, 2, 0.6, None), (4, 4, 0.35, None),
+                          (16, 16, 0.6, 3), (8, 3, 0.9999, 3)])
+def test_vector_mode_tables_equal(nstr, nleg, mu0, num_azimuth):
+    """Every field of the generic vector solver's
+    ``build_vector_mode_tables``."""
+    user_mu = np.array([0.35, 0.8, 0.55])
+    got = disco_vec.build_vector_mode_tables(
+        nstr, nleg, mu0, user_mu, num_azimuth=num_azimuth)
+    ref = disco_vec_ref.build_vector_mode_tables(
+        nstr, nleg, mu0, user_mu, num_azimuth=num_azimuth)
+    for field in dataclasses.fields(ref):
+        np.testing.assert_array_equal(
+            getattr(got, field.name), getattr(ref, field.name),
+            err_msg=field.name,
+        )
+
+
+@pytest.mark.parametrize("num_stokes", [1, 3])
+def test_generic_tables_equal(num_stokes):
+    """The generic route's tables of every ground-viewing group, every
+    limb group's points of a 2-point solar zenith grid and every flux
+    group, scalar and polarized, against the JAX engine's
+    ``_build_do_tables`` (``engine.py:487-587``)."""
+    engines = {}
+    for pkg in (sk, skt):
+        _, geometry, rays = _build(pkg, LIMB)
+        config = pkg.Config(
+            num_streams=4, num_stokes=num_stokes, num_do_sza=2,
+            multiple_scatter_source=pkg.MultipleScatterSource.DiscreteOrdinates,
+            single_scatter_source=pkg.SingleScatterSource.DiscreteOrdinates,
+        )
+        viewing = pkg.ViewingGeometry()
+        for ray in rays:
+            viewing.add_ray(ray)
+        viewing.add_ray(pkg.SolarAnglesObserverLocation(0.4, 1.1, -0.8, 2e5))
+        for cos_sza, alt in ((0.6, 0.0), (0.3, 12345.0)):
+            viewing.add_flux_observer(pkg.FluxObserverSolar(cos_sza, alt))
+        kw = {"device": "cpu"} if pkg is skt else {}
+        engines[pkg] = pkg.Engine(config, geometry, viewing, **kw)
+    port, ref = engines[skt], engines[sk]
+    do_tables, limb_tables = port._generic_tables
+    pairs = list(zip(do_tables, [t for _, t, _, _ in ref._do_groups]))
+    assert len(limb_tables) == len(ref._limb_groups) == 1
+    pairs += list(zip(limb_tables[0], ref._limb_groups[0][1]))
+    pairs += [(t, t_r) for (_, t, _), (_, t_r, _)
+              in zip(port._flux_groups, ref._flux_groups)]
+    assert len(pairs) == 2 + 2 + 2
+    for tables, tables_r in pairs:
+        assert type(tables).__name__ == type(tables_r).__name__
+        for field in dataclasses.fields(tables_r):
+            np.testing.assert_array_equal(
+                getattr(tables, field.name), getattr(tables_r, field.name),
+                err_msg=field.name,
+            )
+
+
 @pytest.mark.parametrize("basis", ["Standard", "Solar", "Observer"])
 @pytest.mark.parametrize("name", list(GEOMETRIES))
 def test_stokes_basis_rotations_equal(name, basis):

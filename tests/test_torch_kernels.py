@@ -12,7 +12,8 @@ the plain twin in f64 (1e-12); Jacobi runs at n in {2, 8, 16, 24, 32}
 against numpy's ``eigh`` (f32: eigenvalue sets and reconstruction
 residual) and against the plain twin in f64 (1e-12), and at the engines'
 [100, n, n, 1024] for n = 8 (the register branch) and n = 12 and 24 (the
-shared-memory branch)."""
+shared-memory branch), and on converged matrices whose pairs are in
+reversed order (near-swap rotations), where V must stay orthonormal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -176,3 +177,44 @@ def test_jacobi_kernel_vs_eigh_on_gpu(cuda_device, n):
     wp64, vp64 = jacobi_cuda.jacobi_eigh_plain(a64, 10)
     assert _rel(w64.cpu().numpy(), wp64.cpu().numpy()) <= 1e-12
     assert _rel(v64.cpu().numpy(), vp64.cpu().numpy()) <= 1e-12
+
+
+def _reversed_pairs(n, dtype, tiny, device):
+    """Converged [2, n, n, 16] matrices with every pair in reversed order:
+    diagonal n, ..., 1 and off-diagonal ``tiny``, so each rotation is a
+    near-swap with |a_pq| / |a_qq - a_pp| far below 1e-19."""
+    d = np.arange(n, 0, -1, dtype=np.float64)
+    a = np.full((n, n), tiny) + np.diag(d - tiny)
+    a = np.broadcast_to(a[None, :, :, None], (2, n, n, 16)).copy()
+    return torch.tensor(a, dtype=dtype, device=device), d
+
+
+def _assert_orthonormal_eigh(w, v, d):
+    n = d.size
+    w, v = w.cpu().double().numpy(), v.cpu().double().numpy()
+    vtv = np.einsum("pjaw,pjbw->pabw", v, v)
+    assert np.max(np.abs(vtv - np.eye(n)[None, :, :, None])) <= 1e-6
+    assert np.max(np.abs(np.sort(w, axis=1) - np.sort(d)[None, :, None])) <= 1e-6 * n
+
+
+REVERSED_CASES = [(torch.float32, 1e-30), (torch.float64, 1e-300)]
+
+
+@pytest.mark.parametrize(("dtype", "tiny"), REVERSED_CASES)
+@pytest.mark.parametrize("n", [2, 6, 12])
+def test_jacobi_plain_reversed_converged_pairs(n, dtype, tiny):
+    """The plain twin's atan2 angle keeps V orthonormal where the
+    rotation of a converged, reversed pair is a near-swap."""
+    a, d = _reversed_pairs(n, dtype, tiny, "cpu")
+    _assert_orthonormal_eigh(*jacobi_cuda.jacobi_eigh_plain(a, 7), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("dtype", "tiny"), REVERSED_CASES)
+@pytest.mark.parametrize("n", [2, 6, 8, 12, 24])
+def test_jacobi_kernel_reversed_converged_pairs_on_gpu(cuda_device, n, dtype,
+                                                       tiny):
+    """The kernel's near-swap rotation: a tangent (r - x) / y whose square
+    overflows float32 would give c = s = 0 and zero two eigenvectors."""
+    a, d = _reversed_pairs(n, dtype, tiny, cuda_device)
+    _assert_orthonormal_eigh(*jacobi_cuda.jacobi_eigh(a, 7), d)

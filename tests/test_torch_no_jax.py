@@ -5,9 +5,11 @@ Rayleigh + Lambertian atmosphere with the port's constituents, run a tiny
 spherical engine with a ground-viewing and a limb ray, exact single
 scatter and DO multiple scatter on the CPU (scalar; polarized, which runs
 the vector solver and the vector limb source; scalar with flux observers;
-over a MODIS BRDF, ground-viewing only; or thermal infrared with DO
-emission, an absorber and flux observers), and check that neither ``jax`` nor any ``sasktran2_tpu``
-module is in ``sys.modules`` and that the host ray tracer was built inside
+over a MODIS BRDF, ground-viewing only; thermal infrared with DO
+emission, an absorber and flux observers; or all of polarized, thermal,
+BRDF and flux observers, which takes the generic per-wavelength route),
+and check that neither ``jax`` nor any ``sasktran2_tpu`` module is in
+``sys.modules`` and that the host ray tracer was built inside
 the port. A static pass parses every module of the port, and
 ``chip_smoke.py``, for such imports. With no GPU, an engine that names no
 device raises instead of running on the CPU."""
@@ -34,8 +36,11 @@ SCRIPT = textwrap.dedent("""
     from sasktran2_tpu_torch import native
 
     case = sys.argv[1]
-    nstokes = 3 if case == "polarized" else 1
-    thermal = case == "thermal"
+    # "generic": polarized, thermal, a BRDF, a limb ray and a flux observer,
+    # the configuration of the generic per-wavelength route
+    nstokes = 3 if case in ("polarized", "generic") else 1
+    thermal = case in ("thermal", "generic")
+    brdf = case in ("brdf", "generic")
     config = sk.Config(
         num_streams=4,
         num_stokes=nstokes,
@@ -54,14 +59,14 @@ SCRIPT = textwrap.dedent("""
     viewing.add_ray(sk.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
     if case != "brdf":
         viewing.add_ray(sk.TangentAltitudeSolar(30000.0, 0.3, 200000.0, 0.6))
-    if case in ("flux", "thermal"):
+    if case in ("flux", "thermal", "generic"):
         viewing.add_flux_observer(sk.FluxObserverSolar(0.6, 10000.0))
     wl = [4500.0, 9000.0] if thermal else [350.0, 600.0]
     atmo = sk.Atmosphere(geometry, config, wavelengths_nm=wl)
     sk.climatology.us76.add_us76_standard_atmosphere(atmo)
     atmo["rayleigh"] = sk.constituent.Rayleigh()
     atmo["surface"] = sk.constituent.LambertianSurface(0.3)
-    if case == "brdf":
+    if brdf:
         atmo["surface"] = sk.constituent.MODIS(0.25, 0.15, 0.05)
     if thermal:
         atmo["absorber"] = sk.constituent.VMRAltitudeAbsorber(
@@ -76,9 +81,9 @@ SCRIPT = textwrap.dedent("""
     nlos = 1 if case == "brdf" else 2
     assert rad.shape == (2, nlos, nstokes) and np.all(rad[..., 0] > 0), rad
     assert "wf_rayleigh_pressure_pa" in out
-    if case in ("flux", "thermal"):
+    if case in ("flux", "thermal", "generic"):
         assert "wf_rayleigh_pressure_pa_downwelling_flux" in out
-    if case == "brdf":
+    if brdf:
         assert "wf_surface_volumetric" in out
     if thermal:
         assert "wf_thermal_temperature_k_upwelling_flux" in out
@@ -97,7 +102,7 @@ SCRIPT = textwrap.dedent("""
 
 
 @pytest.mark.parametrize("case", ["scalar", "polarized", "flux", "brdf",
-                                  "thermal"])
+                                  "thermal", "generic"])
 def test_port_never_imports_jax(case):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

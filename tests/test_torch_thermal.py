@@ -27,8 +27,8 @@ in float64 on the CPU, with inputs made from numpy seeds:
   DO emission) through the port alone;
 * float32: the temperature and emission weighting functions stay finite
   and near float64 at the top layers;
-* polarized thermal emission raises ``NotImplementedError`` naming the
-  generic route's ROADMAP slice."""
+* polarized DO and two-stream thermal emission, ground-viewing and limb,
+  through the port's generic route against the JAX package's, to 1e-10."""
 
 import jax
 import jax.numpy as jnp
@@ -449,24 +449,47 @@ def test_emission_standard_vs_do():
 @pytest.mark.parametrize(("emission", "limb"), [
     ("DiscreteOrdinates", False), ("TwoStream", True),
 ])
-def test_polarized_thermal_raises(emission, limb):
-    """The JAX package sends polarized thermal emission to its generic
-    route (``_polarized_fast_ok``)."""
-    config = skt.Config(
-        num_streams=4, num_stokes=3,
-        multiple_scatter_source=skt.MultipleScatterSource.DiscreteOrdinates,
-        single_scatter_source=skt.SingleScatterSource.DiscreteOrdinates,
-        emission_source=getattr(skt.EmissionSource, emission),
-    )
-    geometry = skt.Geometry1D(
-        cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
-        altitude_grid_m=np.linspace(0.0, 100000.0, 6),
-        geometry_type=skt.GeometryType.Spherical,
-    )
-    viewing = skt.ViewingGeometry()
-    viewing.add_ray(
-        skt.TangentAltitudeSolar(20000.0, 0.0, 200000.0, 0.6) if limb
-        else skt.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
-    with pytest.raises(NotImplementedError,
-                       match="polarized DO and two-stream thermal.*slice 9"):
-        skt.Engine(config, geometry, viewing, device="cpu")
+def test_polarized_thermal_matches_jax(emission, limb):
+    """Polarized DO and two-stream thermal emission, which the JAX package
+    sends to its generic route (``_polarized_fast_ok``), in the thermal
+    infrared (the sun off, US76, Rayleigh, the tabulated absorber,
+    ``ThermalEmission``): the port's generic route matches its engine at
+    1e-10, radiance and every ``wf_*``."""
+
+    def case(pkg, ref_atmo=None):
+        config = pkg.Config(
+            num_streams=4, num_stokes=3,
+            multiple_scatter_source=pkg.MultipleScatterSource.DiscreteOrdinates,
+            single_scatter_source=pkg.SingleScatterSource.DiscreteOrdinates,
+            emission_source=getattr(pkg.EmissionSource, emission),
+        )
+        geometry = pkg.Geometry1D(
+            cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
+            altitude_grid_m=np.linspace(0.0, 100000.0, 6),
+            geometry_type=pkg.GeometryType.Spherical,
+        )
+        viewing = pkg.ViewingGeometry()
+        viewing.add_ray(
+            pkg.TangentAltitudeSolar(20000.0, 0.0, 200000.0, 0.6) if limb
+            else pkg.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
+        if ref_atmo is not None:
+            return config, geometry, viewing, atmosphere_from_reference(
+                ref_atmo, geometry, config)
+        return config, geometry, viewing, _thermal_constituents(
+            pkg, config, geometry, THERMAL_WL[:2])
+
+    config, geometry, viewing, atmo = case(sk)
+    engine_ref = sk.Engine(config, geometry, viewing)
+    ref = engine_ref.calculate_radiance(atmo)
+    assert not engine_ref._polarized_fast_ok()
+    config, geometry, viewing, atmo_t = case(skt, atmo)
+    engine = skt.Engine(config, geometry, viewing, device="cpu")
+    got = engine.calculate_radiance(atmo_t)
+    assert not engine._polarized_fast_ok() and not engine._fast_route
+    assert set(got.keys()) == set(ref.keys())
+    assert "wf_thermal_temperature_k" in ref.keys()
+    for key in ref.keys():
+        a, b = got[key], ref[key]
+        assert a.dims == b.dims, key
+        err = _rel_err(a.to_numpy(), b.to_numpy())
+        assert err <= 1e-10, (key, err)

@@ -12,7 +12,7 @@ built by the package. An old ``jacobi.cu`` must have the current entry
 points (``ops/jacobi_cuda._SIGNATURE``); the earlier local-memory
 version's interface is not bound (its n = 12 and 24 times stay in
 PERF.md's kernel table). In f32 at the engines' shapes (Thomas
-[100, 16, 16, 1024]; Jacobi [100, n, n, 1024] with 7 sweeps at n = 8, 12
+[100, 16, 16, 1024]; Jacobi [100, n, n, 1024] with 7 sweeps at n = 6, 8, 12
 and 24) the script times old, new, new, old, each by CUDA events, and
 prints the card's name and power limit, the ptxas report of every build,
 each time, and the largest difference between the two versions' outputs.
@@ -117,7 +117,8 @@ def main():
         for version in ("old", "new"):
             fns[version] = _bind(libs[version, "jacobi"], "jacobi_eigh_f32",
                                  jacobi_cuda._SIGNATURE)
-        for P, n, W in [(100, 8, 1024), (100, 12, 1024), (100, 24, 1024)]:
+        for P, n, W in [(100, 6, 1024), (100, 8, 1024), (100, 12, 1024),
+                        (100, 24, 1024)]:
             a = np.random.default_rng(P + n).normal(size=(P, n, n, W))
             a = torch.as_tensor(0.5 * (a + np.swapaxes(a, -3, -2)), dtype=f32,
                                 device=dev)

@@ -7,12 +7,15 @@ ground-viewing case (``smoke_case``), the 16-stream limb scan
 flux case (``flux16_case``), the 4-stream polarized case
 (``pol4_case``), the 16-stream MODIS BRDF case (``brdf16_case``) and the
 16-stream thermal infrared cases, ground-viewing with fluxes and limb
-(``thermal16_case``, ``thermallimb16_case``). Wavelengths are
+(``thermal16_case``, ``thermallimb16_case``), and the three 4-stream
+polarized cells of the generic per-wavelength route, over a MODIS BRDF,
+with flux observers, and the thermal limb scan (``polbrdf4_case``,
+``polflux4_case``, ``polthermallimb4_case``). Wavelengths are
 independent in this model, so 8 wavelengths taken from a case's
 1024-point grid give the same values as the full grid. Runs the JAX
 engine on the CPU in float64:
 
-    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|pol16_solver|test_vec8|test_limbpol4|all]
+    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|pol16_solver|test_vec8|test_limbpol4|all]
 
 and writes ``sasktran2_tpu_torch/data/golden_<case>.npz`` with the
 wavelength indices, the wavelengths, ``radiance``, the ``*_flux``
@@ -81,6 +84,12 @@ def main():
                       scenarios.GOLDEN_THERMAL16_PATH, thermal),
         "thermallimb16": (scenarios.thermallimb16_case,
                           scenarios.GOLDEN_THERMALLIMB16_PATH, thermal),
+        "polbrdf4": (scenarios.polbrdf4_case, scenarios.GOLDEN_POLBRDF4_PATH,
+                     solar),
+        "polflux4": (scenarios.polflux4_case, scenarios.GOLDEN_POLFLUX4_PATH,
+                     solar),
+        "polthermallimb4": (scenarios.polthermallimb4_case,
+                            scenarios.GOLDEN_POLTHERMALLIMB4_PATH, thermal),
     }
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     tests = {"test_vec8": vec8_test_golden,
@@ -118,7 +127,8 @@ def main():
         arrays = {"indices": idx, "wavelengths_nm": wl, **f64}
         for key, ref in f64.items():
             arrays[f"jax_f32_err_{key}"] = scenarios.golden_error(
-                key, f32[key], ref)
+                key, f32[key], ref, qu_scale=scenarios.QU_SCALE.get(
+                    name, "own"))
         save(path, arrays)
     if args.case in ("pol16_solver", "all"):
         save(scenarios.GOLDEN_POL16_SOLVER_PATH,

@@ -1,14 +1,19 @@
 """Where the time goes in one of the PyTorch port's engine calls on a GPU.
 
     python tools/profile_torch_engine.py
-        [--case ground|limb|2str|flux16|pol4|pol16|limbpol16]
+        [--case ground|limb|2str|flux16|pol4|pol16|limbpol16|generic16|
+                polbrdf4|polflux4|polthermallimb4]
         [--trace engine_trace.json] [--tree PATH] [--time N]
 
 Builds the case of ``sasktran2_tpu_torch.scenarios`` (``ground``: the
 16-stream ground-viewing ``smoke_case``, the default; ``limb``: the
 16-stream limb scan ``limb_case``; ``2str``: ``twostream_case``;
 ``flux16``, ``pol4``, ``pol16``, ``limbpol16``: the flux and polarized
-cases of the same names) at W = 1024 in float32 on ``cuda:0``, warms up,
+cases of the same names; the generic per-wavelength route's cells:
+``generic16``, ``smoke_case`` with the engine's fast-path gates replaced
+by ``lambda: False``, and ``polbrdf4``, ``polflux4``,
+``polthermallimb4``, the last on the thermal cases' 4,000-15,000 nm grid)
+at W = 1024 in float32 on ``cuda:0``, warms up,
 then profiles one ``calculate_radiance`` call with Jacobians and one
 without under ``torch.profiler``. For each it prints the wall time, the
 device time summed over kernels and copies, the device busy share (device
@@ -132,7 +137,9 @@ def main():
     cases = {
         "ground": "smoke_case", "limb": "limb_case", "2str": "twostream_case",
         "flux16": "flux16_case", "pol4": "pol4_case", "pol16": "pol16_case",
-        "limbpol16": "limbpol16_case",
+        "limbpol16": "limbpol16_case", "generic16": "smoke_case",
+        "polbrdf4": "polbrdf4_case", "polflux4": "polflux4_case",
+        "polthermallimb4": "polthermallimb4_case",
     }
     parser.add_argument("--case", choices=list(cases), default="ground")
     parser.add_argument("--trace", default=None,
@@ -157,10 +164,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    config, geometry, viewing, atmo = build(
-        sk, "float32", scenarios.smoke_wavelengths()
-    )
+    grid = (scenarios.thermal_wavelengths if args.case == "polthermallimb4"
+            else scenarios.smoke_wavelengths)
+    config, geometry, viewing, atmo = build(sk, "float32", grid())
     engine = sk.Engine(config, geometry, viewing, device="cuda:0")
+    if args.case == "generic16":
+        engine._twostream_fast_ok = lambda: False
     if args.time:
         engine.calculate_radiance(atmo)
         times = []
