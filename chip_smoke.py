@@ -105,13 +105,33 @@ final line:
     trace).
 Each of 17-19 must take the generic route by the engine's own gates, and
 each of 16-19 must launch K1 and K3 at the sizes named.
+20-22. Successive orders (``rt/successive.py``) on ``limb_case``'s 20
+    limb rays at 51 altitudes, 64 wavelengths, a 10 x 10 direction grid
+    and 50 iterations, each against its JAX float64 golden file (one
+    wavelength per JAX call): solimb16 (one SZA profile,
+    ``golden_solimb16.npz``), solimb16_doinit (the field seeded by a
+    16-stream, 16-mode DO solve, which must launch K1 at K = 16 and K3 at
+    n = 8; ``golden_solimb16_doinit.npz``) and polsolimb16 (I, Q, U;
+    ``golden_polsolimb16.npz``), each by the engine's own gates on the
+    generic route. First the time of the host build of the SO geometry
+    the three share (one memoised build); after each cell the time of
+    one SO transport step at the cell's shapes. Phase 21 also holds K1
+    and K3 at solimb16_doinit's own DO-seed inputs ([50, 16, 16, 1024]
+    and [50, 8, 8, 1024], captured in a radiance-only call) against
+    their plain twins and a float64 truth, as phase 8 does, timed
+    beside their bounds and library calls, on contiguous copies, and as
+    the path calls them (permuted views of its lanes, which the wrappers
+    copy).
+
+Every phase prints its end time since the script started.
 
 Each engine case prints its launches per kernel instance, the peak device
 memory, the warm-call times with and without Jacobians and the Jacobian
 rows' share. The check that no ``jax`` or ``sasktran2_tpu`` module is
 loaded is made again before the kernel record, which lists every kernel
 instance with its launches in its own case (and in every case that
-launched it) and, apart, the K = 48 torch-op path.
+launched it) and, apart, the torch-op paths: the K = 48 block-Thomas
+solve and the SO transport step.
 
 The line before the last is the kernel record as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -186,6 +206,14 @@ def check_no_jax(label):
     print(f"[{label}] jax or sasktran2_tpu modules loaded: {foreign}",
           flush=True)
     check(not foreign, "the port loaded jax or the JAX package")
+
+
+T_START = time.perf_counter()
+
+
+def phase_done(label, phase):
+    print(f"[{label}] phase {phase} done at "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def card_label():
@@ -569,7 +597,9 @@ def timed_calls(engine, atmo, reps):
 
 def reset_launches():
     from sasktran2_tpu_torch.ops import jacobi_cuda, lanes, thomas_cuda
+    from sasktran2_tpu_torch.rt import successive
 
+    successive.transport_step.calls = 0
     thomas_cuda.thomas_solve.launches = 0
     thomas_cuda.thomas_solve.launches_by_k = {}
     jacobi_cuda.jacobi_eigh.launches = 0
@@ -578,11 +608,14 @@ def reset_launches():
 
 
 def read_launches():
-    """The kernels' launch counts, in all and per instance, and the
-    block-Thomas solves that took the torch-op loop (K > 24) per K."""
+    """The kernels' launch counts, in all and per instance, the
+    block-Thomas solves that took the torch-op loop (K > 24) per K, and
+    the SO transport steps."""
     from sasktran2_tpu_torch.ops import jacobi_cuda, lanes, thomas_cuda
+    from sasktran2_tpu_torch.rt import successive
 
     return {
+        "so_transport_steps": successive.transport_step.calls,
         "thomas": thomas_cuda.thomas_solve.launches,
         "jacobi": jacobi_cuda.jacobi_eigh.launches,
         "thomas_by_k": dict(thomas_cuda.thomas_solve.launches_by_k),
@@ -611,7 +644,7 @@ def force_generic(engine):
 
 
 def engine_case(sk, build, golden_path, wl, reps, what, label,
-                kernels_expected, generic=None, qu_scale="own"):
+                kernels_expected, generic=None, qu_scale="own", idx=None):
     """One engine case of ``sasktran2_tpu_torch.scenarios`` end to end on
     the card: the cold call in float32 with Jacobians through an engine
     built with no device (so on ``cuda``), with the launches of both
@@ -629,10 +662,13 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     n) the path must launch. ``generic`` None leaves the route to the
     engine; "forced" sends it down the generic route (``force_generic``),
     "own" requires that the engine's gates chose the generic route, and
-    both check that the call took it. ``qu_scale`` is ``compare_golden``'s.
-    Then the median of ``reps`` warm calls with and without Jacobians, as
-    wavelengths/s (kept in ``RATES``) and wavelength-lines-of-sight/s, and
-    the Jacobian rows' share. Returns the launch counts."""
+    both check that the call took it. ``qu_scale`` is ``compare_golden``'s;
+    ``idx`` the golden wavelengths' indices in ``wl`` (default
+    ``scenarios.GOLDEN_INDICES``). Then the median of ``reps`` warm calls
+    (None: 3, or 1 where the cold call took over 60 s) with and without
+    Jacobians, as wavelengths/s (kept in ``RATES``) and
+    wavelength-lines-of-sight/s, and the Jacobian rows' share. Returns
+    the launch counts."""
     import torch
     from sasktran2_tpu_torch.scenarios import GOLDEN_INDICES
 
@@ -654,6 +690,8 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     first_s = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if reps is None:
+        reps = 1 if first_s > 60.0 else 3
     print(f"[{label}] {what} W={W} f32 with Jacobians: first call "
           f"{first_s:.2f} s, kernel launches {launches}, peak device memory "
           f"{peak_gb:.2f} GB, route "
@@ -679,7 +717,7 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
           f"finite: {bool(finite)}; radiance (I) > 0: {positive}",
           flush=True)
     check(finite and positive, f"{what}: non-finite or non-positive output")
-    idx = GOLDEN_INDICES
+    idx = GOLDEN_INDICES if idx is None else idx
     config64, geometry64, viewing64, atmo64 = build(sk, "float64", wl[idx])
     engine64 = sk.Engine(config64, geometry64, viewing64, device="cuda:0")
     if generic == "forced":
@@ -723,6 +761,74 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     return launches
 
 
+def phase_so_build(sk, label):
+    """The host build of the SO cells' geometry, timed: the first
+    solimb16 engine (float32, on the card) builds it, and the memo of
+    ``successive.so_geometry`` hands it to every later engine of the three
+    cells. Returns the build's seconds."""
+    from sasktran2_tpu_torch.scenarios import so_wavelengths, solimb16_case
+
+    t0 = time.perf_counter()
+    first = sk.Engine(*solimb16_case(sk, "float32", so_wavelengths()[:1])[:3])
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = sk.Engine(*solimb16_case(sk, "float64", so_wavelengths()[:1])[:3])
+    again_s = time.perf_counter() - t0
+    geom = first._so_plans[0].geom
+    check(again._so_plans[0].geom is geom,
+          "a second SO engine of the same geometry built it again")
+    R, S = geom.seg_mask.shape
+    print(f"[{label}] SO geometry host build (first engine constructor): "
+          f"{build_s:.1f} s for {geom.nlev} levels x {geom.ndir} directions "
+          f"= {R} internal rays, {S} padded segments, "
+          f"{geom.seg_mask.mean():.3f} of them real; a second constructor "
+          f"of the same geometry: {again_s:.2f} s (memoised)", flush=True)
+    return build_s
+
+
+def so_transport_ms(sk, build, label, what):
+    """Milliseconds of one SO transport step (``successive.
+    transport_step``) at the cell's shapes in float32 on the card: the
+    field's source [R, n W] and the segment factors [nseg, W]."""
+    import torch
+    from sasktran2_tpu_torch.rt import successive
+    from sasktran2_tpu_torch.scenarios import so_wavelengths
+
+    config, geometry, viewing, _ = build(sk, "float32", so_wavelengths())
+    plan = sk.Engine(config, geometry, viewing)._so_plans[0]
+    W = len(so_wavelengths())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    j = torch.rand((plan.R, config.num_stokes * W), generator=gen,
+                   device="cuda")
+    c = torch.rand((plan.nseg, W), generator=gen, device="cuda")
+    ms = cuda_ms(lambda: successive.transport_step(plan, j, c), 20)
+    stencil = plan.ops["stencil"].m
+    print(f"[{label}] {what}: one SO transport step [R={plan.R}, "
+          f"{config.num_stokes}x{W}] over {plan.nseg} real segments "
+          f"({stencil.values().numel()} stencil entries), f32: {ms:.3f} ms",
+          flush=True)
+    return ms
+
+
+def so_case(sk, build, golden_path, what, label, kernels_expected):
+    """One successive-orders cell: ``engine_case`` on the 64-wavelength
+    grid against its golden file (the generic route by the engine's own
+    gates; its cold call must run SO transport steps), then the time of
+    one transport step at its shapes."""
+    from sasktran2_tpu_torch.scenarios import (
+        SO_GOLDEN_INDICES,
+        so_wavelengths,
+    )
+
+    launches = engine_case(
+        sk, build, golden_path, so_wavelengths(), None, what, label,
+        kernels_expected, generic="own", idx=SO_GOLDEN_INDICES,
+    )
+    check(launches["so_transport_steps"] > 0,
+          f"{what}: no SO transport step ran")
+    return launches, so_transport_ms(sk, build, label, what)
+
+
 class Capture:
     """Keep a detached copy of the arguments of every call of a function
     that a module holds by name (``module.name``) while the block runs,
@@ -746,17 +852,22 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
-def capture_engine_inputs(sk, build, wl):
-    """The eigensolve and block-Thomas inputs of each mode of a polarized
-    engine case's radiance-only f32 call on the card: two lists, one entry
-    per mode, of [P, n, n, W] matrices and (lo, di, up, rhs) systems."""
+def capture_engine_inputs(sk, build, wl, module=None):
+    """The eigensolve and block-Thomas inputs of an engine case's
+    radiance-only f32 call on the card, as ``module`` (default: the
+    polarized solver's ``rt.disco_vec_minor``, one call per mode; the
+    generic route's ``ops.lanes``, one call per solve) hands them to
+    ``lane_jacobi_eigh_scan`` and ``lane_block_thomas_solve``: two lists,
+    one entry per call, of [P, n, n, W] matrices and (lo, di, up, rhs)
+    systems."""
     from sasktran2_tpu_torch.rt import disco_vec_minor
 
+    module = disco_vec_minor if module is None else module
     config, geometry, viewing, atmo = build(sk, "float32", wl)
     atmo.calculate_derivatives = False
     engine = sk.Engine(config, geometry, viewing)
-    with Capture(disco_vec_minor, "lane_jacobi_eigh_scan") as eig, \
-            Capture(disco_vec_minor, "lane_block_thomas_solve") as bvp:
+    with Capture(module, "lane_jacobi_eigh_scan") as eig, \
+            Capture(module, "lane_block_thomas_solve") as bvp:
         engine.calculate_radiance(atmo)
     return [c[0] for c in eig.args], [c[:4] for c in bvp.args]
 
@@ -978,7 +1089,12 @@ def main():
     sys.path.insert(0, HERE)
     try:
         import sasktran2_tpu_torch as sk
-        from sasktran2_tpu_torch.ops import _build, jacobi_cuda, thomas_cuda
+        from sasktran2_tpu_torch.ops import (
+            _build,
+            jacobi_cuda,
+            lanes,
+            thomas_cuda,
+        )
         from sasktran2_tpu_torch.scenarios import (
             GOLDEN_BRDF16_PATH,
             GOLDEN_FLUX16_PATH,
@@ -986,7 +1102,10 @@ def main():
             GOLDEN_POL4_PATH,
             GOLDEN_POLBRDF4_PATH,
             GOLDEN_POLFLUX4_PATH,
+            GOLDEN_POLSOLIMB16_PATH,
             GOLDEN_POLTHERMALLIMB4_PATH,
+            GOLDEN_SOLIMB16_DOINIT_PATH,
+            GOLDEN_SOLIMB16_PATH,
             GOLDEN_THERMAL16_PATH,
             GOLDEN_THERMALLIMB16_PATH,
             LIMBPOL_NUM_LOS,
@@ -999,9 +1118,13 @@ def main():
             pol16_case,
             polbrdf4_case,
             polflux4_case,
+            polsolimb16_case,
             polthermallimb4_case,
             smoke_case,
             smoke_wavelengths,
+            so_wavelengths,
+            solimb16_case,
+            solimb16_doinit_case,
             thermal16_case,
             thermal_wavelengths,
             thermallimb16_case,
@@ -1039,9 +1162,11 @@ def main():
     check(len(shared_branch) == 4 and all(b == 0 for _, b in shared_branch),
           "the jacobi kernel's n > 8 branch has a stack frame (local memory)")
 
+    phase_done(label, 1)
     wl = smoke_wavelengths()
     thomas_rec, jacobi_rec, launches, limb_launches = phases_2_to_7(
         sk, dev, wl, label)
+    phase_done(label, "2-7")
     # --- phase 8: the kernel instances of the polarized path ----------------
     # each at a polarized engine's own inputs (a radiance-only call)
     eig4, bvp4 = capture_engine_inputs(sk, pol4_case, wl)
@@ -1064,6 +1189,7 @@ def main():
           f"torch-op loop (no kernel at K > 24, as the reference's scan): "
           f"{k48_ms:.3f} ms per solve", flush=True)
     del eig4, bvp4, eig16, bvp16
+    phase_done(label, 8)
 
     # --- phase 9: flux observers ----------------------------------------------
     flux_launches = engine_case(
@@ -1071,6 +1197,7 @@ def main():
         "flux nstr=16 P=100 nlos=1 nobs=6 (4 types)", label,
         kernels_expected={"thomas": [16], "jacobi": [8]},
     )
+    phase_done(label, 9)
 
     # --- phase 10: polarized, 4 streams -----------------------------------------
     pol4_launches = engine_case(
@@ -1078,6 +1205,7 @@ def main():
         "pol4 nstr=4 P=100 nlos=4 (I, Q, U)", label,
         kernels_expected={"thomas": [12], "jacobi": [6]},
     )
+    phase_done(label, 10)
 
     # --- phase 11: polarized, 16 streams ---------------------------------------
     phase_pol16_solver(label)
@@ -1090,6 +1218,7 @@ def main():
         kernels_expected={"jacobi": [24], "torch_op_thomas": [48]},
     )
     phase_dolp_16_vs_8(label)
+    phase_done(label, 11)
 
     # --- phase 12: polarized limb scan, 16 streams ------------------------------
     limbpol_launches = engine_case(
@@ -1097,6 +1226,7 @@ def main():
         f"limbpol16 nstr=16 P=100 nlos={LIMBPOL_NUM_LOS} (I, Q, U)", label,
         kernels_expected={"jacobi": [24], "torch_op_thomas": [48]},
     )
+    phase_done(label, 12)
 
     # --- phase 13: BRDF surface, every azimuth mode -------------------------------
     brdf_launches = engine_case(
@@ -1110,6 +1240,7 @@ def main():
           f"= {16 / 3:.3f}: all 16 modes against Rayleigh's 3)", flush=True)
     check(3 * brdf_launches["thomas"] >= 16 * launches["thomas"],
           "brdf16 did not solve every azimuth mode")
+    phase_done(label, 13)
 
     # --- phases 14, 15: thermal emission, ground-viewing with fluxes, limb --------
     twl = thermal_wavelengths()  # phases 14, 15 and 19
@@ -1123,6 +1254,7 @@ def main():
         "thermallimb16 nstr=16 P=100 nlos=20", label,
         kernels_expected={"thomas": [16], "jacobi": [8]},
     )
+    phase_done(label, "14-15")
 
     # --- phases 16-19: the generic per-wavelength route -------------------------
     generic_launches = engine_case(
@@ -1157,6 +1289,50 @@ def main():
         generic="own", qu_scale=QU_SCALE["polthermallimb4"],
     )
 
+    phase_done(label, "16-19")
+
+    # --- phases 20-22: successive orders ---------------------------------------
+    so_build_s = phase_so_build(sk, label)
+    solimb_launches, so_ms = so_case(
+        sk, solimb16_case, GOLDEN_SOLIMB16_PATH,
+        "solimb16 SO nstr=16 A=51 nlos=20 D=100", label, {},
+    )
+    phase_done(label, 20)
+    sodo_launches, sodo_ms = so_case(
+        sk, solimb16_doinit_case, GOLDEN_SOLIMB16_DOINIT_PATH,
+        "solimb16_doinit SO nstr=16 A=51 nlos=20 D=100 (DO-initialised)",
+        label, {"thomas": [16], "jacobi": [8]},
+    )
+    # K1 and K3 at the DO seed's own inputs: the one plane-parallel solve
+    # of all 16 azimuth modes and 64 wavelengths ([50, ..., 16 x 64])
+    eig_do, bvp_do = capture_engine_inputs(
+        sk, solimb16_doinit_case, so_wavelengths(), module=lanes)
+    check(len(eig_do) == 1 and len(bvp_do) == 1,
+          f"solimb16_doinit: {len(eig_do)} eigensolves and {len(bvp_do)} "
+          "block-Thomas solves in one radiance-only call (1 and 1 expected)")
+    # the generic route hands the kernels permuted views of its lanes,
+    # which the wrappers copy contiguous: timed as the path calls them,
+    # and in the records on contiguous copies (the kernels' own time)
+    sys_do, a_do = bvp_do[0], eig_do[0]
+    path_ms = (cuda_ms(lambda: thomas_cuda.thomas_solve(*sys_do), 20),
+               cuda_ms(lambda: jacobi_cuda.jacobi_eigh(a_do, 7), 10))
+    thomas_do_rec = phase_thomas_instance(
+        [t.contiguous() for t in sys_do], label, "solimb16_doinit")
+    jacobi_do_rec = phase_jacobi_instance(
+        a_do.contiguous(), label, "solimb16_doinit")
+    print(f"[{label}] solimb16_doinit K1 / K3 on the generic route's own "
+          f"lane layout (permuted views, copied contiguous by the "
+          f"wrappers): {path_ms[0]:.3f} / {path_ms[1]:.3f} ms per call, "
+          f"against {thomas_do_rec['ms']:.3f} / {jacobi_do_rec['ms']:.3f} "
+          f"ms on contiguous inputs", flush=True)
+    del eig_do, bvp_do, sys_do, a_do
+    phase_done(label, 21)
+    polso_launches, polso_ms = so_case(
+        sk, polsolimb16_case, GOLDEN_POLSOLIMB16_PATH,
+        "polsolimb16 SO nstr=16 A=51 nlos=20 D=100 (I, Q, U)", label, {},
+    )
+    phase_done(label, 22)
+
     check_no_jax(label)
     by_path = {
         "ground16": launches, "limb16": limb_launches, "flux16": flux_launches,
@@ -1165,6 +1341,7 @@ def main():
         "thermal16": thermal_launches, "thermallimb16": thermallimb_launches,
         "generic16": generic_launches, "polbrdf4": polbrdf_launches,
         "polflux4": polflux_launches, "polthermallimb4": polthermal_launches,
+        "solimb16_doinit": sodo_launches,
     }
 
     def instance(kernel, size, main):
@@ -1188,6 +1365,11 @@ def main():
          **instance("jacobi", 6, "pol4"), **jacobi6_rec},
         {"name": "jacobi_eigh n=24 (pol16)", **jacobi,
          **instance("jacobi", 24, "pol16"), **jacobi24_rec},
+        {"name": "thomas_block_tridiag_solve K=16 (solimb16_doinit)",
+         **thomas, **instance("thomas", 16, "solimb16_doinit"),
+         **thomas_do_rec},
+        {"name": "jacobi_eigh n=8 (solimb16_doinit)", **jacobi,
+         **instance("jacobi", 8, "solimb16_doinit"), **jacobi_do_rec},
     ]
     torch_op_paths = [
         {"name": "thomas_block_tridiag_solve K=48 (pol16)",
@@ -1200,6 +1382,19 @@ def main():
              "pol16": pol16_launches["torch_op_thomas_by_k"][48],
              "limbpol16": limbpol_launches["torch_op_thomas_by_k"][48]},
          "ms": k48_ms},
+        {"name": "so_transport_step",
+         "route": "torch ops (sparse CSR products); the JAX package's "
+                  "transport is XLA gathers, no Pallas kernel",
+         "source": "sasktran2_tpu_torch/rt/successive.py (transport_step)",
+         "calls": solimb_launches["so_transport_steps"],
+         "calls_by_path": {
+             "solimb16": solimb_launches["so_transport_steps"],
+             "solimb16_doinit": sodo_launches["so_transport_steps"],
+             "polsolimb16": polso_launches["so_transport_steps"]},
+         "ms": so_ms,
+         "ms_by_path": {"solimb16": so_ms, "solimb16_doinit": sodo_ms,
+                        "polsolimb16": polso_ms},
+         "so_geometry_host_build_s": so_build_s},
     ]
     print(json.dumps({"kernels": kernels, "torch_op_paths": torch_op_paths}))
     print(json.dumps({"ok": True, "device": {

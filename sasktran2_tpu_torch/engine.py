@@ -29,10 +29,12 @@ Standard and volume-emission-rate emission; occultation; the
 line-of-sight optical depth; Lambertian and BRDF surfaces; DO and
 two-stream thermal emission; upwelling, downwelling, actinic and
 divergence fluxes at flux observers; scalar and polarized (I, Q, U)
-radiance with the Stokes-basis rotations. Successive orders, 2D
-geometry, ``mesh=``, viewing-geometry containers and
-EngineIntegratedLineShape raise ``NotImplementedError`` naming their
-ROADMAP slice.
+radiance with the Stokes-basis rotations; successive orders of
+scattering (``rt/successive.py``: scalar, DO-initialised, on a grid of
+solar zenith angles, with refracted internal rays, and polarized), which
+takes the generic route as in the JAX engine. 2D geometry, ``mesh=``,
+viewing-geometry containers and EngineIntegratedLineShape raise
+``NotImplementedError`` naming their ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ from .dataset import DataArray, Dataset
 from .device import resolve_device, resolve_dtype
 from .geometry import Geometry1D
 from .params import core_from_reference
-from .rt import disco, disco_vec, do_source, singlescatter
+from .rt import disco, disco_vec, do_source, singlescatter, successive
 from .rt.disco_nstream import solve_nstream, solve_nstream_m0_levels
 from .rt.disco_vec import NS
 from .rt.disco_vec_minor import build_vector_minor_tables, solve_nstream_vector
@@ -148,10 +150,12 @@ class Engine:
                 self._d02_tab = singlescatter.phase_tables_d02(
                     self._traced, nleg
                 )
+        self._needs_so = ms == MultipleScatterSource.SuccessiveOrders
         self._needs_do = ms in (
             MultipleScatterSource.DiscreteOrdinates,
             MultipleScatterSource.TwoStream,
-        ) or ss == SingleScatterSource.DiscreteOrdinates
+        ) or (ss == SingleScatterSource.DiscreteOrdinates
+              and not self._needs_so)
         self._do_nstr = (
             2 if ms == MultipleScatterSource.TwoStream else config.num_streams
         )
@@ -161,6 +165,8 @@ class Engine:
         self._flux_groups = []
         if self._needs_do:
             self._build_do_tables()
+        if self._needs_so:
+            self._build_so_tables()
         self._num_azi_eff = None
         self._brdf = None
         self._stokes_cs = (
@@ -192,10 +198,6 @@ class Engine:
                 f"viewing geometry {type(self._viewing).__name__} (the port "
                 "takes sasktran2_tpu_torch.ViewingGeometry)",
                 "ROADMAP, Next: ViewingGeometryContainer",
-            )
-        if cfg.multiple_scatter_source == MultipleScatterSource.SuccessiveOrders:
-            raise _not_ported(
-                "successive orders", "ROADMAP Queue 1 slice 10, SO"
             )
         if cfg.spectral_grid_mode == SpectralGridMode.EngineIntegratedLineShape:
             raise _not_ported(
@@ -458,6 +460,84 @@ class Engine:
         self._limb_groups.append(
             (all_idx, [limb_tables(float(m0)) for m0 in sza_grid])
         )
+
+    def _build_so_tables(self):
+        """The successive-orders tables (``sasktran2_tpu/engine.py:236-316``):
+        the SO geometry of each point of the solar zenith grid (one point,
+        the geometry's, unless ``num_successive_orders_sza > 1`` on a
+        scalar engine; then the grid spans the rays' local solar zenith
+        range and the line-of-sight source is interpolated per boundary),
+        the observer rays' direction-interpolation tables, the polarized
+        kernel tables, and for a DO-initialised scalar single profile the
+        DO solve's mode tables (one user direction, every azimuth mode)
+        and its level-direction tables. The geometries come from the
+        process's memo (``successive.so_geometry``); the engine builds its
+        own ``TransportPlan`` of each, its sparse operators on the
+        engine's device in its dtype."""
+        cfg, geometry = self._config, self._geometry
+        nleg = max(cfg.num_streams, cfg.num_singlescatter_moments)
+        n_inc = max(4, int(round(cfg.num_successive_orders_incoming ** 0.5)))
+        n_so_sza = 1 if self._polarized else max(
+            1, cfg.num_successive_orders_sza)
+        self._so_sza_weights = None
+        self._so_ground_sza_weights = None
+        if n_so_sza > 1:
+            cs = self._traced.cos_sza
+            seg_mask = self._traced.mask
+            bmask = np.zeros(cs.shape)
+            bmask[:, :-1] += seg_mask
+            bmask[:, 1:] += seg_mask
+            cs_valid = cs[bmask > 0]
+            lo, hi = float(cs_valid.min()), float(cs_valid.max())
+            if hi - lo < 1e-6:
+                hi = lo + 1e-6
+            so_sza_grid = np.linspace(lo, hi, n_so_sza)
+            self._so_sza_weights = linear_interpolating_matrix(
+                so_sza_grid, cs.ravel(), "extend"
+            ).reshape(cs.shape + (n_so_sza,))
+            self._so_ground_sza_weights = linear_interpolating_matrix(
+                so_sza_grid, self._traced.ground_cos_sza, "extend"
+            )
+        else:
+            so_sza_grid = np.array([geometry.cos_sza])
+        geoms = [
+            successive.so_geometry(
+                geometry.altitudes(), geometry.earth_radius_m, float(m0),
+                nleg, n_mu=n_inc, n_phi=n_inc,
+                refractive_index=geometry.refractive_index,
+                ms_refraction=cfg.multiple_scatter_refraction,
+            )
+            for m0 in so_sza_grid
+        ]
+        self._so_obs_tables = [
+            successive.observer_source_tables(self._traced, g)
+            for g in geoms
+        ]
+        pol_tabs = (
+            successive.build_so_polarized_tables(geoms[0], nleg)
+            if self._polarized else None
+        )
+        self._so_plans = [
+            successive.TransportPlan(g, self._device, self._dtype, pol_tabs)
+            for g in geoms
+        ]
+        self._so_do_init = (
+            cfg.init_successive_orders_with_discrete_ordinates
+            and not self._polarized
+            and len(geoms) == 1
+        )
+        if self._so_do_init:
+            nstr = cfg.num_streams
+            num_azi = (
+                cfg.num_forced_azimuth if cfg.num_forced_azimuth > 0 else nstr
+            )
+            self._so_do_tables = disco.build_mode_tables(
+                nstr, nstr, geometry.cos_sza, np.array([0.5]),
+                num_azimuth=num_azi,
+            )
+            self._so_dir_tables = do_source.build_level_direction_tables(
+                geoms[0].mu_d, geoms[0].phi_d, nstr, num_azi,
+            )
 
     @functools.cached_property
     def _generic_tables(self):
@@ -931,9 +1011,93 @@ class Engine:
                         self._d02_tab,
                     )
                 )
+        if self._needs_so:
+            rad = rad + self._so_radiance(core)
         if self._needs_do:
             rad = rad + self._do_groups_batched(core)
         return rad
+
+    def _so_radiance(self, core):
+        """The successive-orders radiance [W, nlos] (scalar) or
+        [W, nlos, 3] (polarized): the field's source integrated along the
+        lines of sight, plus the diffuse ground-leaving radiance at the
+        far end of ground-hitting rays (the direct beam's reflection is in
+        the exact single scatter), both scaled by the solar irradiance
+        (``engine.py:747-820``, ``:942-972``). A DO-initialised engine
+        seeds the field with the DO source of a plane-parallel solve
+        (``engine.py:752-766``); with an SZA grid the field is solved per
+        grid point and the source interpolated at each boundary's local
+        solar zenith angle."""
+        ext, ssa, alb = core["extinction"], core["ssa"], core["albedo"]
+        f0 = core["solar_irradiance"]
+        iterations = self._config.num_successive_orders_iterations
+
+        def const(x):
+            return torch.as_tensor(np.asarray(x), dtype=ext.dtype,
+                                   device=ext.device)
+
+        ground_t = const(self._traced.ground_hit) * torch.exp(
+            -singlescatter.optical_depth(ext, self._traced))  # [W, nlos]
+        if self._polarized:
+            legs = tuple(core[k] for k in (
+                "leg_coeff", "leg_a2", "leg_a3", "leg_b1"))
+            _, j_field, i_ground = (
+                successive.successive_orders_field_polarized(
+                    ext, ssa, legs, alb, self._so_plans[0], iterations,
+                )
+            )
+            j_in, j_out = successive.so_source_along_rays_polarized(
+                j_field, self._traced, self._so_obs_tables[0]
+            )
+            ms = singlescatter.integrate_od_source(
+                ext, j_in.permute(3, 0, 1, 2), j_out.permute(3, 0, 1, 2),
+                self._traced,
+            ).permute(1, 2, 0)                      # [W, nlos, 3]
+            g = i_ground[:, None] * ground_t
+            zero = torch.zeros_like(g)
+            return f0[:, None, None] * (
+                ms + torch.stack([g, zero, zero], dim=-1))
+
+        j_init = None
+        if self._so_do_init:
+            dtau, omega, beta = self._layer_optical(
+                ext, ssa, core["leg_coeff"])
+            _, internal = disco.solve_plane_parallel(
+                dtau, omega, beta, alb, self._so_do_tables,
+                np.array([True]), np.array([0.0]), include_ss=False,
+                return_internal=True,
+            )
+            j_init = do_source.ms_source_on_levels(
+                internal, self._so_dir_tables
+            )
+        j_in, j_out, i_ground = [], [], []
+        for plan, tables in zip(self._so_plans, self._so_obs_tables):
+            _, j_field, ig = successive.successive_orders_field(
+                ext, ssa, core["leg_coeff"], alb, plan, iterations,
+                j_init=j_init,
+            )
+            ji, jo = successive.so_source_along_rays(
+                j_field, self._traced, tables
+            )
+            j_in.append(ji)
+            j_out.append(jo)
+            i_ground.append(ig)
+        if len(j_in) == 1:
+            j_in, j_out = j_in[0], j_out[0]
+            i_ground_ray = i_ground[0][:, None]
+        else:
+            wts = const(self._so_sza_weights)
+            S = j_in[0].shape[-1]
+            j_in = torch.einsum("wrsn,rsn->wrs", torch.stack(j_in, -1),
+                                wts[:, :S])
+            j_out = torch.einsum("wrsn,rsn->wrs", torch.stack(j_out, -1),
+                                 wts[:, 1:S + 1])
+            i_ground_ray = torch.einsum(
+                "wn,rn->wr", torch.stack(i_ground, -1),
+                const(self._so_ground_sza_weights),
+            )
+        ms = singlescatter.integrate_od_source(ext, j_in, j_out, self._traced)
+        return f0[:, None] * (ms + i_ground_ray * ground_t)
 
     def _outputs(self, core):
         """The outputs of one call as blocks of [W, n] columns: the

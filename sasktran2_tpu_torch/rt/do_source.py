@@ -69,6 +69,68 @@ def build_ray_vector_tables(traced: TracedRays, nleg: int, num_azimuth: int):
     return {"d0": d0, "pp": pp, "pm": pm, "cosm": cosm, "sinm": sinm}
 
 
+def build_level_direction_tables(mu_d, phi_d, nleg: int, num_azimuth: int):
+    """Static tables for evaluating the scalar DO source on a (level x
+    direction) grid: normalized ALP at the signed direction cosines and the
+    azimuth cosines (for initializing successive orders from the DO
+    solution; reference ``diffuse_table.cpp:306-331`` builds the analogous
+    DO-storage -> diffuse-outgoing interpolator)."""
+    mu_d = np.asarray(mu_d, dtype=np.float64)
+    D = len(mu_d)
+    lam_d = np.zeros((num_azimuth, nleg, D))
+    cosm = np.zeros((num_azimuth, D))
+    for m in range(num_azimuth):
+        lam_d[m] = normalized_alp(mu_d, m, nleg)
+        cosm[m] = np.cos(m * (np.pi - np.asarray(phi_d)))
+    return {"lam_d": lam_d, "cosm": cosm}
+
+
+def ms_source_on_levels(internal, tables):
+    """Scalar DO diffuse (multiple-scatter-only) source per unit optical
+    depth on a (level x direction) grid, [B, V, D] with V bottom-up levels
+    (``sasktran2_tpu/rt/do_source.py:58``), from the ``internal`` of
+    ``rt.disco.solve_plane_parallel(..., return_internal=True)`` (level
+    fields [M, B, P, N]).
+
+    It seeds the successive-orders iteration from the DO solution
+    (reference ``initialize_hr_with_do``, ``diffuse_table.cpp:739-750``).
+    The direct-beam scattering term is left out: the SO field's first
+    order already contains it.
+    """
+    omega = internal["omega"]      # [B, P]
+    beta = internal["beta"]        # [B, P, L]
+    levels = internal["levels"]    # [M, B, P, N]
+    dt, dev = omega.dtype, omega.device
+
+    def const(x):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+    lam = const(internal["lam"])          # [M, L, N]
+    parity = const(internal["parity"])    # [M, L]
+    wq = const(internal["w_quad"])
+    M, L = lam.shape[:2]
+    # the tables may carry more azimuth modes than the (truncated) solve
+    lam_d = const(tables["lam_d"][:M, :L])  # [M, L, D]
+    cosm = const(tables["cosm"][:M])        # [M, D]
+
+    def stream_sums(ip, im):
+        s1 = torch.einsum("mln,mbpn->mbpl", lam, ip * wq)
+        s2 = torch.einsum("mln,mbpn->mbpl", lam, im * wq)
+        return s1 + parity[:, None, None, :] * s2
+
+    g_top = stream_sums(levels["i_plus_top"], levels["i_minus_top"])
+    g_bot = stream_sums(levels["i_plus_bot"], levels["i_minus_bot"])
+    # boundary fields TOA-first: layer tops + ground (bottom of last layer)
+    g_b = torch.cat([g_top, g_bot[:, :, -1:]], dim=2)       # [M, B, P+1, L]
+    om_b = torch.cat([omega, omega[..., -1:]], dim=-1)      # [B, P+1]
+    beta_b = torch.cat([beta, beta[..., -1:, :]], dim=-2)
+    j_m = 0.5 * om_b[..., None] * torch.einsum(
+        "bvl,mld,mbvl->mbvd", beta_b, lam_d, g_b
+    )
+    j = torch.einsum("mbvd,md->bvd", j_m, cosm)             # TOA-first
+    return torch.flip(j, (1,))                              # bottom-up
+
+
 def _endpoint_coefficients(tables, rr, bb):
     """The angular coefficients of the endpoints at boundaries (rr, bb):
     [n, M, L] for the scalar tables of ``build_ray_angular_tables``

@@ -67,6 +67,19 @@ K = 12) but the first:
 * ``polthermallimb4_case``: ``thermallimb16_case`` polarized at 4
   streams, ``POLTHERMAL_NUM_LOS`` lines of sight.
 
+The successive-orders cells, on ``limb_case``'s 20 limb rays with exact
+single scatter, 16 moments, the reference's SO defaults (110 incoming
+directions: a 10 x 10 grid; 50 iterations) and ``SO_NUM_WAVELENGTHS`` = 64
+wavelengths on 280-800 nm, spherical geometry on ``SO_ALTITUDES_M``
+(0-100 km at 2 km, 51 levels: the host build of the SO geometry, Python
+loops over every internal ray, grows about as A^2.1 and is the cut's
+reason; PERF.md section 4):
+
+* ``solimb16_case``: one SZA profile;
+* ``solimb16_doinit_case``: the field seeded by a 16-stream, 16-mode DO
+  solve (K1 at K = 16, K3 at n = 8);
+* ``polsolimb16_case``: ``num_stokes = 3``.
+
 ``POL16_SOLVER_*`` is the solver-level case of the 16-stream polarized
 check: the JAX package cannot compile its polarized engine at 16 streams
 on the CPU, so ``tools/make_torch_golden.py`` stores the inputs and
@@ -98,6 +111,15 @@ GOLDEN_POLTHERMALLIMB4_PATH = os.path.join(DATA, "golden_polthermallimb4.npz")
 LIMB_TANGENTS_M = np.linspace(10000.0, 80000.0, 20)
 LIMBPOL_NUM_LOS = 3
 POLTHERMAL_NUM_LOS = 20
+SO_ALTITUDES_M = np.linspace(0.0, 100000.0, 51)
+SO_NUM_WAVELENGTHS = 64
+# the 8 wavelengths of the SO cells' 64-point grid that their golden
+# files hold
+SO_GOLDEN_INDICES = np.linspace(
+    0, SO_NUM_WAVELENGTHS - 1, 8).round().astype(int)
+GOLDEN_SOLIMB16_PATH = os.path.join(DATA, "golden_solimb16.npz")
+GOLDEN_SOLIMB16_DOINIT_PATH = os.path.join(DATA, "golden_solimb16_doinit.npz")
+GOLDEN_POLSOLIMB16_PATH = os.path.join(DATA, "golden_polsolimb16.npz")
 # the cases whose Q and U are gated against the largest |I|
 # (``golden_error``'s ``qu_scale``): thermal emission with the sun off
 # polarizes only a trace
@@ -112,6 +134,11 @@ POL16_SOLVER_NUM_AZIMUTH = 3
 
 def smoke_wavelengths():
     return np.linspace(280.0, 800.0, NUM_WAVELENGTHS)
+
+
+def so_wavelengths():
+    """The SO cells' grid: 64 points from 280 to 800 nm."""
+    return np.linspace(280.0, 800.0, SO_NUM_WAVELENGTHS)
 
 
 def thermal_wavelengths():
@@ -377,6 +404,42 @@ def polthermallimb4_case(sk, dtype: str, wavelengths_nm):
     return config, geometry, viewing, _thermal_atmosphere(
         sk, config, geometry, wavelengths_nm
     )
+
+
+def solimb16_case(sk, dtype: str, wavelengths_nm, num_stokes=1,
+                  do_init=False):
+    """(config, geometry, viewing, atmosphere) of the successive-orders
+    limb scan, built from ``sk`` as ``smoke_case`` is."""
+    config = sk.Config(
+        num_streams=16,
+        num_stokes=num_stokes,
+        multiple_scatter_source=sk.MultipleScatterSource.SuccessiveOrders,
+        single_scatter_source=sk.SingleScatterSource.Exact,
+        num_singlescatter_moments=16,
+        init_successive_orders_with_discrete_ordinates=do_init,
+        dtype=dtype,
+    )
+    geometry = sk.Geometry1D(
+        cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
+        altitude_grid_m=SO_ALTITUDES_M,
+        geometry_type=sk.GeometryType.Spherical,
+    )
+    viewing = sk.ViewingGeometry()
+    for talt in LIMB_TANGENTS_M:
+        viewing.add_ray(sk.TangentAltitudeSolar(float(talt), 0.4, 2e5, 0.6))
+    return config, geometry, viewing, _atmosphere(
+        sk, config, geometry, wavelengths_nm
+    )
+
+
+def solimb16_doinit_case(sk, dtype: str, wavelengths_nm):
+    """``solimb16_case`` seeded by the DO solution."""
+    return solimb16_case(sk, dtype, wavelengths_nm, do_init=True)
+
+
+def polsolimb16_case(sk, dtype: str, wavelengths_nm):
+    """``solimb16_case`` polarized (I, Q, U)."""
+    return solimb16_case(sk, dtype, wavelengths_nm, num_stokes=3)
 
 
 def golden_error(name, got, ref, stokes_axis=-1, qu_scale="own"):

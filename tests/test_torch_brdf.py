@@ -18,7 +18,11 @@ with inputs made from numpy seeds:
   differs from the same solve cut to the phase expansion's 3 modes;
 * BRDF limb scans, BRDF flux observers, polarized BRDF and a BRDF without
   a DO source take the generic route, as in the JAX package, and match its
-  engine at 1e-10."""
+  engine at 1e-10.
+
+The JAX side of the parity tests is read from
+``sasktran2_tpu_torch/data/golden_test_torch_brdf.npz``
+(``tests/torch_support.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -33,11 +37,12 @@ from sasktran2_tpu.rt import disco as disco_ref
 from sasktran2_tpu.rt import disco_nstream as nstream_ref
 from sasktran2_tpu_torch.ops.quadrature import streams
 from sasktran2_tpu_torch.params import (
-    atmosphere_from_reference,
     brdf_from_reference,
     mode_tables_from_reference,
 )
 from sasktran2_tpu_torch.rt import brdf, disco, disco_nstream
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 WAVELENGTHS = np.array([350.0, 500.0, 700.0])
 USER_MU = np.array([0.5, 0.9, 0.3])
@@ -128,16 +133,16 @@ def test_solve_nstream_brdf_matches_jax(nstr):
             f0=jnp.asarray(f0), brdf=brdf_ref.MODISKernel(),
             brdf_args=brdf_args)
 
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
+    (ref,), ref_grads = torch_support.jax_vjp_reference(
+        ref_fn, inputs,
+        lambda outs: [np.random.default_rng(1).normal(size=outs[0].shape)])
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     got = disco_nstream.solve_nstream(
         *ts[:4], tables, USER_UP, USER_AZI, f0=torch.tensor(f0),
         brdf=brdf.MODISKernel(), brdf_args=ts[4])
-    ref = np.asarray(ref)
     assert got.shape == ref.shape == (3, 3)
     assert _rel_err(got.detach().numpy(), ref) <= 1e-10
     ct = np.random.default_rng(1).normal(size=ref.shape)
-    ref_grads = vjp(jnp.asarray(ct))
     # the Lambertian albedo does not enter under a BRDF: no gradient
     grads = torch.autograd.grad(got, ts, grad_outputs=torch.tensor(ct),
                                 allow_unused=True)
@@ -191,7 +196,7 @@ def _engine_case(pkg, name, ref_atmo=None):
     for mu, azi in ((0.5, 0.5), (0.9, 2.0), (1.0, 0.0)):
         viewing.add_ray(pkg.GroundViewingSolar(0.6, azi, mu, 200000.0))
     if ref_atmo is not None:
-        return config, geometry, viewing, atmosphere_from_reference(
+        return config, geometry, viewing, torch_support.carry_atmosphere(
             ref_atmo, geometry, config)
     atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
     pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
@@ -203,7 +208,13 @@ def _engine_case(pkg, name, ref_atmo=None):
 @pytest.mark.parametrize("name", list(CASES))
 def test_engine_brdf_matches_jax(name):
     config, geometry, viewing, atmo = _engine_case(sk, name)
-    ref = sk.Engine(config, geometry, viewing).calculate_radiance(atmo)
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
     carried = CASES[name][3]
     config, geometry, viewing, atmo_t = _engine_case(
         skt, name, ref_atmo=atmo if carried else None)
@@ -274,7 +285,7 @@ def _outside_case(pkg, case, ref_atmo=None):
     viewing = (_limb_viewing(pkg) if case == "limb"
                else _ground_viewing(pkg, flux=case == "flux"))
     if ref_atmo is not None:
-        return config, geometry, viewing, atmosphere_from_reference(
+        return config, geometry, viewing, torch_support.carry_atmosphere(
             ref_atmo, geometry, config)
     atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=np.array([500.0]))
     pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
@@ -291,14 +302,19 @@ def test_brdf_outside_the_fast_path_matches_jax(case):
     solve and exact single scatter see the core albedo (0 under MODIS),
     and every output matches at 1e-10."""
     config, geometry, viewing, atmo = _outside_case(sk, case)
-    ref_engine = sk.Engine(config, geometry, viewing)
-    ref = ref_engine.calculate_radiance(atmo)
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
     config, geometry, viewing, atmo_t = _outside_case(skt, case, atmo)
     engine = skt.Engine(config, geometry, viewing, device="cpu")
     got = engine.calculate_radiance(atmo_t)
     assert not engine._fast_route
-    assert engine._twostream_fast_ok() == ref_engine._twostream_fast_ok()
-    assert engine._polarized_fast_ok() == ref_engine._polarized_fast_ok()
+    assert engine._twostream_fast_ok() == ref.extra["twostream_fast_ok"]
+    assert engine._polarized_fast_ok() == ref.extra["polarized_fast_ok"]
     assert set(got.keys()) == set(ref.keys())
     assert any(k.startswith("wf_surface") for k in ref.keys())
     for key in ref.keys():

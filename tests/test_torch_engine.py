@@ -9,8 +9,12 @@ geometry (raw input atmosphere carried over by
 The configurations the JAX package sends to its generic per-wavelength
 route (polarized thermal emission, polarized radiance with flux
 observers, a BRDF on a limb scan, polarized BRDF) take the port's generic
-route too and match at 1e-10; successive orders raise
-``NotImplementedError``; an engine with no device named needs a GPU."""
+route too and match at 1e-10; so do successive orders, scalar and
+polarized; EngineIntegratedLineShape and a viewing geometry
+that is not the port's raise ``NotImplementedError``; an engine with no
+device named needs a GPU. The JAX engine's side of each case is read from
+``sasktran2_tpu_torch/data/golden_test_torch_engine.npz``
+(``tests/torch_support.py``)."""
 
 import numpy as np
 import pytest
@@ -18,7 +22,8 @@ import torch
 
 import sasktran2_tpu as sk
 import sasktran2_tpu_torch as skt
-from sasktran2_tpu_torch.params import atmosphere_from_reference
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 WAVELENGTHS = np.array([310.0, 400.0, 550.0])
 ALTITUDES = np.linspace(0.0, 100000.0, 20)
@@ -54,7 +59,7 @@ def _constituent_atmosphere(pkg, config, geometry, _ref=None):
 
 def _raw_atmosphere(pkg, config, geometry, ref=None):
     if ref is not None:
-        return atmosphere_from_reference(ref, geometry, config)
+        return torch_support.carry_atmosphere(ref, geometry, config)
     rng = np.random.default_rng(5)
     atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=WAVELENGTHS)
     z = ALTITUDES[:, None]
@@ -99,7 +104,13 @@ def _case(pkg, case, ref_atmo=None):
 @pytest.mark.parametrize("case", list(CASES))
 def test_engine_matches_jax(case):
     config, geometry, viewing, atmo = _case(sk, case)
-    ref = sk.Engine(config, geometry, viewing).calculate_radiance(atmo)
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
     config, geometry, viewing, atmo_t = _case(skt, case, ref_atmo=atmo)
     got = skt.Engine(config, geometry, viewing, device="cpu")\
         .calculate_radiance(atmo_t)
@@ -134,12 +145,20 @@ def _ground_viewing(flux=False):
     return viewing
 
 
+class _RayList:
+    """A viewing geometry that is not the port's ``ViewingGeometry``."""
+
+    def __init__(self, rays):
+        self.observer_rays = rays
+
+
 @pytest.mark.parametrize(("config", "viewing", "match"), [
-    (lambda: _config(skt, ms=skt.MultipleScatterSource.SuccessiveOrders),
-     _ground_viewing, "successive orders"),
-    (lambda: _config(skt, num_stokes=3,
-                     ms=skt.MultipleScatterSource.SuccessiveOrders),
-     _ground_viewing, "successive orders.*slice 10"),
+    (lambda: _config(skt, spectral_grid_mode=(
+        skt.SpectralGridMode.EngineIntegratedLineShape)),
+     _ground_viewing, "EngineIntegratedLineShape.*slice 12"),
+    (lambda: _config(skt),
+     lambda: _RayList(_ground_viewing().observer_rays),
+     "_RayList.*ViewingGeometryContainer"),
 ])
 def test_out_of_slice_raises(config, viewing, match):
     geometry = _geometry(skt, "PlaneParallel")
@@ -147,11 +166,46 @@ def test_out_of_slice_raises(config, viewing, match):
         skt.Engine(config(), geometry, viewing(), device="cpu")
 
 
-def _assert_matches_jax(engine, got, ref_engine, ref):
+def so_engine_case(pkg, num_stokes):
+    """(config, geometry, viewing, atmosphere) of the successive-orders
+    engines this file once held to a refusal: the reference's SO defaults
+    (110 incoming directions, 50 iterations) at 4 streams, plane-parallel
+    on 20 altitudes, one ground-viewing ray, the constituent atmosphere."""
+    config = _config(pkg, num_stokes=num_stokes,
+                     ms=pkg.MultipleScatterSource.SuccessiveOrders)
+    geometry = _geometry(pkg, "PlaneParallel")
+    viewing = pkg.ViewingGeometry()
+    viewing.add_ray(pkg.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
+    return (config, geometry, viewing,
+            _constituent_atmosphere(pkg, config, geometry))
+
+
+@pytest.mark.parametrize("num_stokes", [1, 3])
+def test_successive_orders_matches_jax(num_stokes):
+    """Successive orders, scalar and polarized, at the reference's SO
+    defaults: the generic route, as in the JAX engine, to 1e-10."""
+    case = so_engine_case(sk, num_stokes)
+
+    def jax_side():
+        engine = sk.Engine(*case[:3])
+        return engine, engine.calculate_radiance(case[3])
+
+    ref = torch_support.jax_engine_reference(jax_side, case)
+    config, geometry, viewing, atmo = so_engine_case(skt, num_stokes)
+    engine = skt.Engine(config, geometry, viewing, device="cpu")
+    got = engine.calculate_radiance(atmo)
+    assert not engine._fast_route
+    assert engine._twostream_fast_ok() == ref.extra["twostream_fast_ok"]
+    assert engine._polarized_fast_ok() == ref.extra["polarized_fast_ok"]
+    torch_support.assert_outputs_match(got, ref)
+    assert any(k.startswith("wf_") for k in ref.keys())
+
+
+def _assert_matches_jax(engine, got, ref):
     """Every output of the port's engine call against the JAX engine's to
     1e-10 of its largest magnitude, and the same route."""
-    assert engine._twostream_fast_ok() == ref_engine._twostream_fast_ok()
-    assert engine._polarized_fast_ok() == ref_engine._polarized_fast_ok()
+    assert engine._twostream_fast_ok() == ref.extra["twostream_fast_ok"]
+    assert engine._polarized_fast_ok() == ref.extra["polarized_fast_ok"]
     assert set(got.keys()) == set(ref.keys())
     for name in ref.keys():
         a, b = got[name], ref[name]
@@ -190,7 +244,7 @@ def _generic_case(pkg, num_stokes, emission, viewing, surface, ref=None):
     if viewing == "flux":
         rays.add_flux_observer(pkg.FluxObserverSolar(0.6, 10000.0))
     if ref is not None:
-        return config, geometry, rays, atmosphere_from_reference(
+        return config, geometry, rays, torch_support.carry_atmosphere(
             ref, geometry, config)
     atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=np.array([500.0]))
     pkg.climatology.us76.add_us76_standard_atmosphere(atmo)
@@ -207,13 +261,17 @@ def _generic_case(pkg, num_stokes, emission, viewing, surface, ref=None):
 
 def _run_generic(*case):
     ref_case = _generic_case(sk, *case)
-    ref_engine = sk.Engine(*ref_case[:3])
-    ref = ref_engine.calculate_radiance(ref_case[3])
+
+    def jax_side():
+        engine = sk.Engine(*ref_case[:3])
+        return engine, engine.calculate_radiance(ref_case[3])
+
+    ref = torch_support.jax_engine_reference(jax_side, ref_case)
     config, geometry, viewing, atmo = _generic_case(skt, *case,
                                                     ref=ref_case[3])
     engine = skt.Engine(config, geometry, viewing, device="cpu")
     got = engine.calculate_radiance(atmo)
-    _assert_matches_jax(engine, got, ref_engine, ref)
+    _assert_matches_jax(engine, got, ref)
     assert not engine._fast_route
     return got
 

@@ -11,9 +11,12 @@ numpy seeds:
   black, reflecting and partly absorbing surfaces; observers at the
   ground, inside and at the top of the atmosphere; all four flux types)
   cut to 4 streams and 13 altitudes, plus a spherical US76 + Rayleigh case
-  with two solar zenith angles and log-radiance weighting functions."""
+  with two solar zenith angles and log-radiance weighting functions.
 
-import jax
+The JAX side of the parity tests is read from
+``sasktran2_tpu_torch/data/golden_test_torch_flux.npz``
+(``tests/torch_support.py``)."""
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,11 +26,10 @@ import sasktran2_tpu as sk
 import sasktran2_tpu_torch as skt
 from sasktran2_tpu.rt import disco as disco_ref
 from sasktran2_tpu.rt import disco_nstream as nstream_ref
-from sasktran2_tpu_torch.params import (
-    atmosphere_from_reference,
-    mode_tables_from_reference,
-)
+from sasktran2_tpu_torch.params import mode_tables_from_reference
 from sasktran2_tpu_torch.rt import disco_nstream
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 LEVEL_KEYS = ("i_plus_top", "i_minus_top", "i_plus_bot", "i_minus_bot")
 WAVELENGTHS = np.array([320.0, 450.0, 600.0])
@@ -64,7 +66,12 @@ def test_solve_nstream_m0_levels(chapman, include_ss):
             *args, tables_ref, f0=jnp.asarray(f0), **kw)
         return [lv[k] for k in LEVEL_KEYS] + [t_top, t_ground]
 
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
+    def cotangents(outputs):
+        rng = np.random.default_rng(4)
+        return [rng.normal(size=np.shape(r)) for r in outputs]
+
+    ref, ref_grads = torch_support.jax_vjp_reference(ref_fn, inputs,
+                                                     cotangents)
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     lv, t_top, t_ground = disco_nstream.solve_nstream_m0_levels(
         *ts, tables, f0=torch.tensor(f0), **kw)
@@ -72,9 +79,7 @@ def test_solve_nstream_m0_levels(chapman, include_ss):
     for name, a, b in zip(LEVEL_KEYS + ("t_top", "t_ground"), got, ref):
         assert a.shape == b.shape, name
         assert _rel_err(a.detach().numpy(), np.asarray(b)) <= 1e-10, name
-    rng = np.random.default_rng(4)
-    cts = [rng.normal(size=np.shape(r)) for r in ref]
-    ref_grads = vjp([jnp.asarray(c) for c in cts])
+    cts = cotangents(ref)
     grads = torch.autograd.grad(
         got, ts, grad_outputs=[torch.tensor(c) for c in cts])
     for name, gr, rg in zip(("dtau", "omega", "beta", "albedo"), grads,
@@ -166,7 +171,7 @@ def _engine_case(pkg, name, ref_atmo=None):
     for cos_sza, alt in observers:
         viewing.add_flux_observer(pkg.FluxObserverSolar(cos_sza, alt))
     if ref_atmo is not None:
-        atmo = atmosphere_from_reference(ref_atmo, geometry, config)
+        atmo = torch_support.carry_atmosphere(ref_atmo, geometry, config)
     else:
         atmo = make_atmo(pkg, config, geometry, ssa, albedo)
     return config, geometry, viewing, atmo
@@ -175,7 +180,13 @@ def _engine_case(pkg, name, ref_atmo=None):
 @pytest.mark.parametrize("name", list(CASES))
 def test_engine_flux_matches_jax(name):
     config, geometry, viewing, atmo = _engine_case(sk, name)
-    ref = sk.Engine(config, geometry, viewing).calculate_radiance(atmo)
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
     config, geometry, viewing, atmo_t = _engine_case(skt, name, atmo)
     got = skt.Engine(config, geometry, viewing, device="cpu")\
         .calculate_radiance(atmo_t)

@@ -15,9 +15,12 @@ largest magnitude:
   radiance, the level fields, ``t_top``, ``t_ground`` and ``w_quad``;
 * ``rt.do_source.ms_source_along_rays`` and ``ms_source_along_rays_vec``
   on a traced limb geometry, with the thermal source and the direct beam.
+
+The JAX side of each test is read from
+``sasktran2_tpu_torch/data/golden_test_torch_generic.npz``
+(``tests/torch_support.py``).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +37,8 @@ from sasktran2_tpu.rt import raytrace as raytrace_ref
 from sasktran2_tpu_torch.ops import eigen, linalg
 from sasktran2_tpu_torch.params import mode_tables_from_reference
 from sasktran2_tpu_torch.rt import brdf, disco, disco_vec, do_source
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 LEVEL_KEYS = ("i_plus_top", "i_minus_top", "i_plus_bot", "i_minus_bot")
 USER_MU = np.array([0.5, 0.9, 0.3])
@@ -50,16 +55,19 @@ def _check_grads(port_fn, ref_fn, inputs, seed, names):
     """Values of ``port_fn`` / ``ref_fn`` (lists of arrays) and the
     gradients of a random linear functional of them with respect to every
     input, each to 1e-10 of its largest magnitude."""
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
+    def cotangents(outputs):
+        rng = np.random.default_rng(seed)
+        return [rng.normal(size=np.shape(r)) for r in outputs]
+
+    ref, ref_grads = torch_support.jax_vjp_reference(ref_fn, inputs,
+                                                     cotangents)
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     got = port_fn(*ts)
     assert len(got) == len(ref)
     for i, (a, b) in enumerate(zip(got, ref)):
         assert a.shape == b.shape, i
         assert _rel_err(a.detach().numpy(), np.asarray(b)) <= 1e-10, i
-    rng = np.random.default_rng(seed)
-    cts = [rng.normal(size=np.shape(r)) for r in ref]
-    ref_grads = vjp([jnp.asarray(c) for c in cts])
+    cts = cotangents(ref)
     grads = torch.autograd.grad(
         got, ts, grad_outputs=[torch.tensor(c) for c in cts],
         allow_unused=True)
@@ -81,7 +89,8 @@ def test_jacobi_eigh_matches_jax(n):
         cc = jnp.asarray(c) if xp is jnp else torch.tensor(c)
         return (f * cc).sum(-1).sum(-1)
 
-    w_ref, v_ref = eigen_ref.jacobi_eigh(jnp.asarray(a))
+    w_ref = torch_support.jax_reference(
+        lambda: eigen_ref.jacobi_eigh(jnp.asarray(a))[0], a)
     w, v = eigen.jacobi_eigh(torch.tensor(a))
     assert w.shape == (2, 5, n) and v.shape == (2, 5, n, n)
     assert _rel_err(np.sort(w.numpy(), -1),

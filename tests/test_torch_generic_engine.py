@@ -28,6 +28,7 @@ import pytest
 
 import sasktran2_tpu as sk
 import sasktran2_tpu_torch as skt
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 
 def _rel_err(got, ref):

@@ -38,6 +38,7 @@ from sasktran2_tpu_torch.rt import (
     raytrace,
     singlescatter,
 )
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 ALTITUDES = np.linspace(0.0, 100000.0, 20)
 WAVELENGTHS = np.array([310.0, 400.0, 550.0])

@@ -16,6 +16,7 @@ import torch
 from sasktran2_tpu.ops.lanes import _stacked_round_tables
 from sasktran2_tpu_torch.ops import jacobi_cuda
 from sasktran2_tpu_torch.ops.eigen import stacked_round_tables
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 ORDERS = range(10, 33, 2)
 

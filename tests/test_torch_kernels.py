@@ -13,7 +13,11 @@ against numpy's ``eigh`` (f32: eigenvalue sets and reconstruction
 residual) and against the plain twin in f64 (1e-12), and at the engines'
 [100, n, n, 1024] for n = 8 (the register branch) and n = 12 and 24 (the
 shared-memory branch), and on converged matrices whose pairs are in
-reversed order (near-swap rotations), where V must stay orthonormal."""
+reversed order (near-swap rotations), where V must stay orthonormal.
+
+The Pallas kernels' interpreter-mode outputs are read from
+``sasktran2_tpu_torch/data/golden_test_torch_kernels.npz``
+(``tests/torch_support.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +27,8 @@ import torch
 from sasktran2_tpu.ops.pallas_jacobi import jacobi_eigh_pallas
 from sasktran2_tpu.ops.pallas_thomas import thomas_solve_pallas
 from sasktran2_tpu_torch.ops import jacobi_cuda, thomas_cuda
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 THOMAS_SHAPES = [(7, 4, 8), (13, 16, 130), (5, 6, 128)]
 JACOBI_SHAPES = [(3, 4, 8), (2, 8, 130), (2, 16, 128)]
@@ -49,9 +55,9 @@ def _rel(got, ref):
 @pytest.mark.parametrize(("P", "K", "W"), THOMAS_SHAPES)
 def test_thomas_plain_vs_pallas(P, K, W):
     args = _thomas_inputs(P, K, W, 1 + P + K)
-    ref = np.asarray(thomas_solve_pallas(
+    ref = torch_support.jax_reference(lambda: thomas_solve_pallas(
         *[jnp.asarray(a) for a in args], interpret=True
-    ))
+    ), args)
     before = thomas_cuda.thomas_solve.launches
     got = thomas_cuda.thomas_solve(*[torch.tensor(a) for a in args])
     assert thomas_cuda.thomas_solve.launches == before == 0
@@ -64,8 +70,8 @@ def test_jacobi_plain_vs_pallas(P, n, W):
     the half-angle tangent and the twin from atan2, which agree to
     roundoff, so the unsorted outputs agree too."""
     sym = _sym_inputs(P, n, W)
-    w_ref, v_ref = jacobi_eigh_pallas(jnp.asarray(sym), sweeps=10,
-                                      interpret=True)
+    w_ref, v_ref = torch_support.jax_reference(lambda: jacobi_eigh_pallas(
+        jnp.asarray(sym), sweeps=10, interpret=True), sym)
     before = jacobi_cuda.jacobi_eigh.launches
     w, v = jacobi_cuda.jacobi_eigh(torch.tensor(sym), 10)
     assert jacobi_cuda.jacobi_eigh.launches == before == 0

@@ -17,6 +17,7 @@ from sasktran2_tpu.util import jaxmath
 from sasktran2_tpu_torch.ops import lanes, linalg
 from sasktran2_tpu_torch.rt import disco
 from sasktran2_tpu_torch.util import torchmath
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 VAL_RTOL = 1e-10
 GRAD_RTOL = 1e-9

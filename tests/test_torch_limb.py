@@ -17,9 +17,12 @@ altitudes and 3 wavelengths, with inputs made from numpy seeds:
   function, ``output_los_optical_depth``, and the two-stream limb chain
   with an ozone-like absorber (the cases of ``tests/test_limb.py``,
   ``tests/test_solar_table.py`` and
-  ``tests/test_chain.py::test_scalar_full_chain``)."""
+  ``tests/test_chain.py::test_scalar_full_chain``).
 
-import jax
+The JAX side of the parity tests is read from
+``sasktran2_tpu_torch/data/golden_test_torch_limb.npz``
+(``tests/torch_support.py``)."""
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,11 +34,10 @@ from sasktran2_tpu.rt import disco as disco_ref
 from sasktran2_tpu.rt import disco_nstream as nstream_ref
 from sasktran2_tpu.rt import do_source as do_source_ref
 from sasktran2_tpu.rt import raytrace as raytrace_ref
-from sasktran2_tpu_torch.params import (
-    atmosphere_from_reference,
-    mode_tables_from_reference,
-)
+from sasktran2_tpu_torch.params import mode_tables_from_reference
 from sasktran2_tpu_torch.rt import disco_nstream, do_source
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 WAVELENGTHS = np.array([310.0, 400.0, 550.0])
 LEVEL_KEYS = ("i_plus_top", "i_minus_top", "i_plus_bot", "i_minus_bot")
@@ -97,19 +99,25 @@ def test_solve_nstream_levels(chapman, include_ss):
     def ref_levels(*args):
         return [ref_fn(*args)["levels"][k] for k in LEVEL_KEYS]
 
-    ref, vjp = jax.vjp(jax.jit(ref_levels), *[jnp.asarray(x) for x in inputs])
+    def cotangents(outputs):
+        rng = np.random.default_rng(4)
+        return [rng.normal(size=np.shape(r)) for r in outputs]
+
+    ref, ref_grads = torch_support.jax_vjp_reference(ref_levels, inputs,
+                                                     cotangents)
+    ref_internal = torch_support.jax_reference(
+        lambda: {k: ref_fn(*inputs)[k] for k in ("omega", "t_top", "sbar")},
+        inputs)
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     internal = port_fn(*ts)
     got = [internal["levels"][k] for k in LEVEL_KEYS]
-    rng = np.random.default_rng(4)
-    cts = [rng.normal(size=np.shape(r)) for r in ref]
+    cts = cotangents(ref)
     for k, a, b in zip(LEVEL_KEYS, got, ref):
         assert a.shape == b.shape == (4, 8, 2, 3), k
         assert _rel_err(a.detach().numpy(), np.asarray(b)) <= 1e-10, k
     for key in ("omega", "t_top", "sbar"):
         assert _rel_err(internal[key].detach().numpy(),
-                        np.asarray(ref_fn(*inputs)[key])) <= 1e-12, key
-    ref_grads = vjp([jnp.asarray(c) for c in cts])
+                        ref_internal[key]) <= 1e-12, key
     grads = torch.autograd.grad(
         got, ts, grad_outputs=[torch.tensor(c) for c in cts])
     for name, g, rg in zip(("dtau", "omega", "beta", "albedo"), grads,
@@ -144,7 +152,12 @@ def test_ms_source_along_rays_minor(limb_traced, include_ss):
             ref_fn(*args), traced, ref_tables, include_ss=include_ss)
         return ji * mask, jo * mask
 
-    ref, vjp = jax.vjp(jax.jit(ref_source), *[jnp.asarray(x) for x in inputs])
+    def cotangents(outputs):
+        rng = np.random.default_rng(5)
+        return [rng.normal(size=np.shape(r)) * mask for r in outputs]
+
+    ref, ref_grads = torch_support.jax_vjp_reference(ref_source, inputs,
+                                                     cotangents)
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     got = do_source.ms_source_along_rays_minor(
         port_fn(*ts), rows, include_ss)
@@ -153,9 +166,7 @@ def test_ms_source_along_rays_minor(limb_traced, include_ss):
         a = a.detach().numpy()
         assert np.all(a[traced.mask == 0] == 0.0)
         assert _rel_err(a, np.asarray(b)) <= 1e-10
-    rng = np.random.default_rng(5)
-    cts = [rng.normal(size=np.shape(r)) * mask for r in ref]
-    ref_grads = vjp(tuple(jnp.asarray(c) for c in cts))
+    cts = cotangents(ref)
     grads = torch.autograd.grad(
         got, ts, grad_outputs=[torch.tensor(c) for c in cts])
     for name, g, rg in zip(("dtau", "omega", "beta", "albedo"), grads,
@@ -297,7 +308,7 @@ def _engine_case(pkg, name, ref_atmo=None):
     geometry = _geometry(pkg, alts)
     viewing = _viewing(pkg, rays)
     if ref_atmo is not None:
-        atmo = atmosphere_from_reference(ref_atmo, geometry, config)
+        atmo = torch_support.carry_atmosphere(ref_atmo, geometry, config)
     else:
         atmo = make_atmo(pkg, config, geometry)
     return config, geometry, viewing, atmo
@@ -306,7 +317,13 @@ def _engine_case(pkg, name, ref_atmo=None):
 @pytest.mark.parametrize("name", list(CASES))
 def test_engine_matches_jax(name):
     config, geometry, viewing, atmo = _engine_case(sk, name)
-    ref = sk.Engine(config, geometry, viewing).calculate_radiance(atmo)
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
     config, geometry, viewing, atmo_t = _engine_case(skt, name, atmo)
     got = skt.Engine(config, geometry, viewing, device="cpu")\
         .calculate_radiance(atmo_t)

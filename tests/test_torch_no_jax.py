@@ -7,7 +7,8 @@ scatter and DO multiple scatter on the CPU (scalar; polarized, which runs
 the vector solver and the vector limb source; scalar with flux observers;
 over a MODIS BRDF, ground-viewing only; thermal infrared with DO
 emission, an absorber and flux observers; or all of polarized, thermal,
-BRDF and flux observers, which takes the generic per-wavelength route),
+BRDF and flux observers, which takes the generic per-wavelength route;
+or successive orders),
 and check that neither ``jax`` nor any ``sasktran2_tpu`` module is in
 ``sys.modules`` and that the host ray tracer was built inside
 the port. A static pass parses every module of the port, and
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 import sasktran2_tpu_torch as skt
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,13 +40,19 @@ SCRIPT = textwrap.dedent("""
     case = sys.argv[1]
     # "generic": polarized, thermal, a BRDF, a limb ray and a flux observer,
     # the configuration of the generic per-wavelength route
+    # "so": successive orders (a 4 x 4 direction grid, 4 iterations)
     nstokes = 3 if case in ("polarized", "generic") else 1
     thermal = case in ("thermal", "generic")
     brdf = case in ("brdf", "generic")
+    so = case == "so"
     config = sk.Config(
         num_streams=4,
         num_stokes=nstokes,
-        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+        multiple_scatter_source=(
+            sk.MultipleScatterSource.SuccessiveOrders if so
+            else sk.MultipleScatterSource.DiscreteOrdinates),
+        num_successive_orders_incoming=16,
+        num_successive_orders_iterations=4,
         single_scatter_source=(sk.SingleScatterSource.DiscreteOrdinates
                                if thermal else sk.SingleScatterSource.Exact),
         emission_source=(sk.EmissionSource.DiscreteOrdinates if thermal
@@ -102,7 +110,7 @@ SCRIPT = textwrap.dedent("""
 
 
 @pytest.mark.parametrize("case", ["scalar", "polarized", "flux", "brdf",
-                                  "thermal", "generic"])
+                                  "thermal", "generic", "so"])
 def test_port_never_imports_jax(case):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -2,9 +2,12 @@
 against the JAX package's ``solve_nstream`` in float64 on the CPU:
 radiance to 1e-10 relative and the gradients with respect to dtau,
 omega, beta and albedo to 1e-9, at P = 8 layers, W = 3 wavelengths and
-U = 2 user directions (one up, one down)."""
+U = 2 user directions (one up, one down).
 
-import jax
+The JAX side is read from
+``sasktran2_tpu_torch/data/golden_test_torch_nstream.npz``
+(``tests/torch_support.py``)."""
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +17,8 @@ from sasktran2_tpu.rt import disco as disco_ref
 from sasktran2_tpu.rt import disco_nstream as nstream_ref
 from sasktran2_tpu_torch.params import mode_tables_from_reference
 from sasktran2_tpu_torch.rt import disco_nstream
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 P, W = 8, 3
 USER_MU = np.array([0.5, 0.9])
@@ -60,19 +65,19 @@ def test_solve_nstream_and_gradients(nstr, chapman, include_ss, num_azimuth):
             f0=jnp.asarray(f0),
         )
 
-    ref_out, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
+    (ref_out,), ref_grads = torch_support.jax_vjp_reference(
+        ref_fn, inputs,
+        lambda outs: [np.random.default_rng(1).normal(size=outs[0].shape)])
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     out = disco_nstream.solve_nstream(
         *ts, tables, USER_UP, USER_AZI, include_ss=include_ss,
         chapman=chap, num_azimuth=num_azimuth, f0=torch.tensor(f0),
     )
-    ref_out = np.asarray(ref_out)
     assert out.shape == (2, W)
     assert np.max(np.abs(out.detach().numpy() - ref_out)) <= (
         1e-10 * np.max(np.abs(ref_out))
     )
     ct = np.random.default_rng(1).normal(size=ref_out.shape)
-    ref_grads = vjp(jnp.asarray(ct))
     grads = torch.autograd.grad(out, ts, grad_outputs=torch.tensor(ct))
     for name, g, rg in zip(("dtau", "omega", "beta", "albedo"), grads,
                            ref_grads):

@@ -7,10 +7,8 @@ wavelengths):
 * radiance at nstr 2, 4 and 8 (up- and downwelling users, three azimuths)
   and the gradients of a random linear functional of it with respect to
   every input, to 1e-10 of their largest magnitude; with and without the
-  direct-beam term, with and without a chapman matrix (the JAX side of
-  the 8-stream case, whose compile takes over a minute, is read from
-  ``golden_test_vec8.npz``, written by ``tools/make_torch_golden.py
-  --case test_vec8`` with this file's functions);
+  direct-beam term, with and without a chapman matrix (the JAX side read
+  from ``golden_test_torch_polarized.npz``, ``tests/torch_support.py``);
 * the level fields of ``return_internal`` (the limb source's input);
 * at 16 streams, against the dense matrix-exponential vector oracle
   ``tests/bruteforce.solve_brute_vector`` to rtol 3e-5, as
@@ -19,9 +17,7 @@ wavelengths):
   I, Q, U and DOLP at 16 streams against 8 streams within that test's
   tolerances."""
 
-import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,18 +25,16 @@ import torch
 
 from sasktran2_tpu.rt import disco_vec_minor as vec_ref
 from sasktran2_tpu_torch.rt import disco_vec_minor
-from sasktran2_tpu_torch.scenarios import DATA
 
 from .bruteforce import solve_brute_vector
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 LEVEL_KEYS = ("i_plus_top", "i_minus_top", "i_plus_bot", "i_minus_bot")
 USER_MU = np.array([0.35, 0.8, 0.55])
 USER_UP = np.array([True, True, False])
 USER_AZI = np.array([0.4, 1.2, 2.4])
 GRAD_NAMES = ("dtau", "omega", "a1", "a2", "a3", "b1", "albedo")
-# (nstr, include_ss, chapman, internal) of the case held to a golden file
-VEC8_CASE = (8, True, False, True)
-GOLDEN_VEC8_PATH = os.path.join(DATA, "golden_test_vec8.npz")
 
 
 def _rel_err(got, ref):
@@ -100,20 +94,14 @@ def _cotangents(nstr, outputs):
 @pytest.mark.parametrize(
     ("nstr", "include_ss", "chapman", "internal"),
     [(2, True, False, False), (4, True, True, True), (4, False, False, False),
-     VEC8_CASE],
+     (8, True, False, True)],
 )
 def test_solve_nstream_vector_matches_jax(nstr, include_ss, chapman,
                                           internal):
     inputs = _problem(7 + nstr, nstr)
     ref_fn, port_fn = _pair(nstr, include_ss, chapman, internal)
-    if (nstr, include_ss, chapman, internal) == VEC8_CASE:
-        golden = np.load(GOLDEN_VEC8_PATH)
-        ref = [golden[f"out_{i}"] for i in range(1 + 4 * internal)]
-        ref_grads = [golden[f"grad_{k}"] for k in GRAD_NAMES]
-    else:
-        ref, vjp = jax.vjp(jax.jit(ref_fn),
-                           *[jnp.asarray(x) for x in inputs])
-        ref_grads = vjp([jnp.asarray(c) for c in _cotangents(nstr, ref)])
+    ref, ref_grads = torch_support.jax_vjp_reference(
+        ref_fn, inputs, lambda outs: _cotangents(nstr, outs))
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     got = port_fn(*ts)
     assert got[0].shape == (3, 3, 5)

@@ -20,20 +20,17 @@ Cases (the scenarios of ``tests/test_polarized_engine.py``,
 * exact single scatter with occultation and no multiple scatter (no
   solver), solar basis.
 
-The JAX side of the limb scan case, whose compile takes over a minute, is
-read from ``golden_test_limbpol4.npz`` (written by
-``tools/make_torch_golden.py --case test_limbpol4`` with this file's
-``_engine_case``); the port builds that case's atmosphere itself."""
-
-import os
+The JAX side of every case is read from
+``sasktran2_tpu_torch/data/golden_test_torch_polarized_engine.npz``
+(``tests/torch_support.py``)."""
 
 import numpy as np
 import pytest
 
 import sasktran2_tpu as sk
 import sasktran2_tpu_torch as skt
-from sasktran2_tpu_torch.params import atmosphere_from_reference
-from sasktran2_tpu_torch.scenarios import DATA
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 WAVELENGTHS = np.array([350.0, 450.0, 600.0])
 
@@ -112,37 +109,6 @@ CASES = {
 }
 
 
-# the case held to a golden file
-LIMBPOL4_CASE = "limb_exact_ss_sza2_observer_basis"
-GOLDEN_LIMBPOL4_PATH = os.path.join(DATA, "golden_test_limbpol4.npz")
-
-
-class _Golden:
-    """The JAX engine's outputs of ``LIMBPOL4_CASE`` from the golden
-    file, with the keys, dims and ``to_numpy`` of an output Dataset."""
-
-    def __init__(self, path):
-        arrays = np.load(path)
-        self.polarized_fast_ok = bool(arrays["polarized_fast_ok"])
-        self._dims = {k[len("dims_of_"):]: tuple(str(d) for d in arrays[k])
-                      for k in arrays.files if k.startswith("dims_of_")}
-        self._values = {k: arrays[k] for k in self._dims}
-
-    def keys(self):
-        return self._values.keys()
-
-    def __getitem__(self, key):
-        return _GoldenVariable(self._values[key], self._dims[key])
-
-
-class _GoldenVariable:
-    def __init__(self, values, dims):
-        self._values, self.dims = values, dims
-
-    def to_numpy(self):
-        return self._values
-
-
 def _engine_case(pkg, name, ref_atmo=None):
     kw, alts, gtype, rays, make_atmo, wavelengths = CASES[name]
     kw = dict(kw)
@@ -174,7 +140,7 @@ def _engine_case(pkg, name, ref_atmo=None):
     for cls, ray_args in rays:
         viewing.add_ray(getattr(pkg, cls)(*ray_args))
     if ref_atmo is not None:
-        atmo = atmosphere_from_reference(ref_atmo, geometry, config)
+        atmo = torch_support.carry_atmosphere(ref_atmo, geometry, config)
     else:
         atmo = make_atmo(pkg, config, geometry, wavelengths)
     return config, geometry, viewing, atmo
@@ -182,18 +148,17 @@ def _engine_case(pkg, name, ref_atmo=None):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_polarized_engine_matches_jax(name):
-    if name == LIMBPOL4_CASE:
-        ref = _Golden(GOLDEN_LIMBPOL4_PATH)
-        assert ref.polarized_fast_ok
-        config, geometry, viewing, atmo_t = _engine_case(skt, name)
-    else:
-        config, geometry, viewing, atmo = _engine_case(sk, name)
-        ref_engine = sk.Engine(config, geometry, viewing)
-        ref = ref_engine.calculate_radiance(atmo)
-        if config.multiple_scatter_source != (
-                sk.MultipleScatterSource.NoSource):
-            assert ref_engine._polarized_fast_ok()
-        config, geometry, viewing, atmo_t = _engine_case(skt, name, atmo)
+    config, geometry, viewing, atmo = _engine_case(sk, name)
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
+    if config.multiple_scatter_source != sk.MultipleScatterSource.NoSource:
+        assert ref.extra["polarized_fast_ok"]
+    config, geometry, viewing, atmo_t = _engine_case(skt, name, atmo)
     engine = skt.Engine(config, geometry, viewing, device="cpu")
     got = engine.calculate_radiance(atmo_t)
     assert set(got.keys()) == set(ref.keys())

@@ -6,10 +6,12 @@ geometry with two limb rays, a ground-viewing ray and a downward ray from
 an observer inside the atmosphere (20 altitudes, 3 wavelengths). Inputs
 are made from a numpy seed; values and the gradients of a random linear
 functional of the output (``torch.autograd`` against ``jax.vjp``) agree to
-1e-10 of their largest magnitude."""
+1e-10 of their largest magnitude.
 
-import jax
-import jax.numpy as jnp
+The JAX side is read from
+``sasktran2_tpu_torch/data/golden_test_torch_singlescatter.npz``
+(``tests/torch_support.py``)."""
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,8 @@ import sasktran2_tpu as sk
 from sasktran2_tpu.rt import raytrace as raytrace_ref
 from sasktran2_tpu.rt import singlescatter as ss_ref
 from sasktran2_tpu_torch.rt import singlescatter
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 ALTITUDES = np.linspace(0.0, 100000.0, 20)
 W, L = 3, 4
@@ -105,11 +109,11 @@ def test_los_source_and_gradients(traced, name):
     def ref_fn(*args):
         return call(ss_ref, traced, phase_tab, {**x, **dict(zip(wrt, args))})
 
-    ref, vjp = jax.vjp(ref_fn, *[jnp.asarray(x[k]) for k in wrt])
-    ref = np.asarray(ref)
+    (ref,), ref_grads = torch_support.jax_vjp_reference(
+        ref_fn, [x[k] for k in wrt],
+        lambda outs: [np.random.default_rng(7).normal(size=outs[0].shape)])
     assert ref.shape == (W, traced.mask.shape[0])
     ct = np.random.default_rng(7).normal(size=ref.shape)
-    ref_grads = vjp(jnp.asarray(ct))
 
     xt = {k: torch.tensor(v) for k, v in x.items()}
     ins = [xt[k].requires_grad_(True) for k in wrt]

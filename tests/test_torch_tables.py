@@ -17,6 +17,7 @@ from sasktran2_tpu_torch.device import resolve_dtype
 from sasktran2_tpu_torch.ops import eigen
 from sasktran2_tpu_torch.params import mode_tables_from_reference
 from sasktran2_tpu_torch.rt import disco
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize(("nstr", "nleg", "mu0", "user_mu", "num_azimuth"), [

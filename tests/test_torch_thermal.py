@@ -28,9 +28,12 @@ in float64 on the CPU, with inputs made from numpy seeds:
 * float32: the temperature and emission weighting functions stay finite
   and near float64 at the top layers;
 * polarized DO and two-stream thermal emission, ground-viewing and limb,
-  through the port's generic route against the JAX package's, to 1e-10."""
+  through the port's generic route against the JAX package's, to 1e-10.
 
-import jax
+The JAX side of the solver and engine parity tests is read from
+``sasktran2_tpu_torch/data/golden_test_torch_thermal.npz``
+(``tests/torch_support.py``)."""
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,11 +46,10 @@ from sasktran2_tpu.rt import disco_nstream as nstream_ref
 from sasktran2_tpu.rt import do_source as do_source_ref
 from sasktran2_tpu.rt import raytrace as raytrace_ref
 from sasktran2_tpu.rt import twostream as twostream_ref
-from sasktran2_tpu_torch.params import (
-    atmosphere_from_reference,
-    mode_tables_from_reference,
-)
+from sasktran2_tpu_torch.params import mode_tables_from_reference
 from sasktran2_tpu_torch.rt import disco_nstream, do_source, twostream
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 LEVEL_KEYS = ("i_plus_top", "i_minus_top", "i_plus_bot", "i_minus_bot")
 INPUT_NAMES = ("dtau", "omega", "beta", "albedo", "thermal_b0",
@@ -81,17 +83,30 @@ def _inputs(P, W, nstr, seed):
     return dtau, omega, beta, albedo, b_top, b_bot, surf
 
 
-def _check_vjp(got, ref, vjp, ts, seed):
+def _cotangents(seed):
+    """The seeded cotangents of a list of outputs."""
+
+    def make(outputs):
+        rng = np.random.default_rng(seed)
+        return [rng.normal(size=np.shape(r)) for r in outputs]
+
+    return make
+
+
+def _reference(ref_fn, inputs, seed):
+    """The JAX function's outputs and its vjp at ``_cotangents(seed)``
+    (``tests/torch_support.py``)."""
+    return torch_support.jax_vjp_reference(ref_fn, inputs, _cotangents(seed))
+
+
+def _check_vjp(got, ref, ref_grads, ts, seed):
     """Outputs to 1e-10, then the gradients of a random functional of
     them with respect to every input to 1e-10."""
     got = list(got) if isinstance(got, (list, tuple)) else [got]
-    ref = list(ref) if isinstance(ref, (list, tuple)) else [ref]
     for i, (a, b) in enumerate(zip(got, ref)):
         assert a.shape == b.shape, i
         assert _rel_err(a.detach().numpy(), np.asarray(b)) <= 1e-10, i
-    rng = np.random.default_rng(seed)
-    cts = [rng.normal(size=np.shape(r)) for r in ref]
-    ref_grads = vjp(cts[0] if len(cts) == 1 else [jnp.asarray(c) for c in cts])
+    cts = _cotangents(seed)(ref)
     grads = torch.autograd.grad(
         got, ts, grad_outputs=[torch.tensor(c) for c in cts])
     for name, g, rg in zip(INPUT_NAMES, grads, ref_grads):
@@ -118,13 +133,13 @@ def test_solve_nstream_thermal_matches_jax(nstr, chapman, num_azimuth):
             f0=jnp.asarray(F0), thermal_b0=b0, thermal_b1_bottom=b1,
             surface_emission=surf, **kw)
 
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
+    ref, ref_grads = _reference(ref_fn, inputs, 1)
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     got = disco_nstream.solve_nstream(
         *ts[:4], tables, USER_UP, USER_AZI, f0=torch.tensor(F0),
         thermal_b0=ts[4], thermal_b1_bottom=ts[5], surface_emission=ts[6],
         **kw)
-    _check_vjp(got, ref, lambda c: vjp(jnp.asarray(c)), ts, 1)
+    _check_vjp(got, ref, ref_grads, ts, 1)
 
 
 def test_solve_nstream_m0_levels_thermal_matches_jax():
@@ -140,12 +155,12 @@ def test_solve_nstream_m0_levels_thermal_matches_jax():
             thermal_b0=b0, thermal_b1_bottom=b1, surface_emission=surf)
         return [lv[k] for k in LEVEL_KEYS]
 
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
+    ref, ref_grads = _reference(ref_fn, inputs, 2)
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     lv, _, _ = disco_nstream.solve_nstream_m0_levels(
         *ts[:4], tables, f0=torch.tensor(F0), thermal_b0=ts[4],
         thermal_b1_bottom=ts[5], surface_emission=ts[6])
-    _check_vjp([lv[k] for k in LEVEL_KEYS], ref, vjp, ts, 2)
+    _check_vjp([lv[k] for k in LEVEL_KEYS], ref, ref_grads, ts, 2)
 
 
 def test_solve_twostream_thermal_matches_jax():
@@ -159,12 +174,12 @@ def test_solve_twostream_thermal_matches_jax():
             f0=jnp.asarray(F0), thermal_b0=b0, thermal_b1_bottom=b1,
             surface_emission=surf)
 
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
+    ref, ref_grads = _reference(ref_fn, inputs, 3)
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     got = twostream.solve_twostream(
         *ts[:4], tables, USER_UP, USER_AZI, f0=torch.tensor(F0),
         thermal_b0=ts[4], thermal_b1_bottom=ts[5], surface_emission=ts[6])
-    _check_vjp(got, ref, lambda c: vjp(jnp.asarray(c)), ts, 3)
+    _check_vjp(got, ref, ref_grads, ts, 3)
 
 
 def test_limb_source_thermal_matches_jax():
@@ -195,7 +210,7 @@ def test_limb_source_thermal_matches_jax():
             internal, traced, ref_rays, include_ss=True)
         return ji * mask, jo * mask
 
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
+    ref, ref_grads = _reference(ref_fn, inputs, 4)
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     _, internal = disco_nstream.solve_nstream(
         *ts[:4], tables, *one, f0=torch.tensor(F0), thermal_b0=ts[4],
@@ -204,7 +219,7 @@ def test_limb_source_thermal_matches_jax():
     got = do_source.ms_source_along_rays_minor(internal, rows, True)
     for a in got:
         assert np.all(a.detach().numpy()[traced.mask == 0] == 0.0)
-    _check_vjp(got, ref, lambda c: vjp(tuple(c)), ts, 4)
+    _check_vjp(got, ref, ref_grads, ts, 4)
 
 
 # --- the engine --------------------------------------------------------------
@@ -300,7 +315,7 @@ def _engine_case(pkg, name, ref_atmo=None, emission="DiscreteOrdinates"):
     for alt in flux_alts:
         viewing.add_flux_observer(pkg.FluxObserverSolar(0.6, alt))
     if ref_atmo is not None:
-        return config, geometry, viewing, atmosphere_from_reference(
+        return config, geometry, viewing, torch_support.carry_atmosphere(
             ref_atmo, geometry, config)
     return config, geometry, viewing, build(pkg, config, geometry, wl)
 
@@ -308,9 +323,14 @@ def _engine_case(pkg, name, ref_atmo=None, emission="DiscreteOrdinates"):
 @pytest.mark.parametrize("name", list(CASES))
 def test_engine_thermal_matches_jax(name):
     config, geometry, viewing, atmo = _engine_case(sk, name)
-    engine_ref = sk.Engine(config, geometry, viewing)
-    ref = engine_ref.calculate_radiance(atmo)
-    assert engine_ref._twostream_fast_ok()
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
+    assert ref.extra["twostream_fast_ok"]
     raw = CASES[name][5] is _thermal_raw
     config, geometry, viewing, atmo_t = _engine_case(
         skt, name, ref_atmo=atmo if raw else None)
@@ -473,15 +493,20 @@ def test_polarized_thermal_matches_jax(emission, limb):
             pkg.TangentAltitudeSolar(20000.0, 0.0, 200000.0, 0.6) if limb
             else pkg.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
         if ref_atmo is not None:
-            return config, geometry, viewing, atmosphere_from_reference(
+            return config, geometry, viewing, torch_support.carry_atmosphere(
                 ref_atmo, geometry, config)
         return config, geometry, viewing, _thermal_constituents(
             pkg, config, geometry, THERMAL_WL[:2])
 
     config, geometry, viewing, atmo = case(sk)
-    engine_ref = sk.Engine(config, geometry, viewing)
-    ref = engine_ref.calculate_radiance(atmo)
-    assert not engine_ref._polarized_fast_ok()
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
+    assert not ref.extra["polarized_fast_ok"]
     config, geometry, viewing, atmo_t = case(skt, atmo)
     engine = skt.Engine(config, geometry, viewing, device="cpu")
     got = engine.calculate_radiance(atmo_t)

@@ -9,9 +9,12 @@ users, and a chapman matrix with a solar spectrum f0). The engine:
 radiance and every ``wf_*`` to 1e-10 of each variable's largest magnitude,
 with ``MultipleScatterSource.TwoStream`` in plane-parallel geometry and
 DO at nstr = 2 in pseudo-spherical geometry, 14 altitudes, 3 wavelengths,
-two ground-viewing rays."""
+two ground-viewing rays.
 
-import jax
+The JAX side of the parity tests is read from
+``sasktran2_tpu_torch/data/golden_test_torch_twostream.npz``
+(``tests/torch_support.py``)."""
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,11 +24,10 @@ import sasktran2_tpu as sk
 import sasktran2_tpu_torch as skt
 from sasktran2_tpu.rt import disco as disco_ref
 from sasktran2_tpu.rt import twostream as twostream_ref
-from sasktran2_tpu_torch.params import (
-    atmosphere_from_reference,
-    mode_tables_from_reference,
-)
+from sasktran2_tpu_torch.params import mode_tables_from_reference
 from sasktran2_tpu_torch.rt import twostream
+from tests import torch_support
+from tests.torch_support import one_torch_thread  # noqa: F401
 
 
 def _rel_err(got, ref):
@@ -75,8 +77,9 @@ def test_solve_twostream_and_gradients(name):
             f0=None if kw["f0"] is None else jnp.asarray(kw["f0"]),
         )
 
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
-    ref = np.asarray(ref)
+    (ref,), ref_grads = torch_support.jax_vjp_reference(
+        ref_fn, inputs,
+        lambda outs: [np.random.default_rng(1).normal(size=outs[0].shape)])
     ts = [torch.tensor(x, requires_grad=True) for x in inputs]
     out = twostream.solve_twostream(
         *ts, tables, user_up, user_azi, chapman=kw["chapman"],
@@ -85,7 +88,6 @@ def test_solve_twostream_and_gradients(name):
     assert out.shape == ref.shape == (len(user_mu), W)
     assert _rel_err(out.detach().numpy(), ref) <= 1e-10
     ct = np.random.default_rng(1).normal(size=ref.shape)
-    ref_grads = vjp(jnp.asarray(ct))
     grads = torch.autograd.grad(out, ts, grad_outputs=torch.tensor(ct))
     for k, g, rg in zip(("dtau", "omega", "beta", "albedo"), grads,
                         ref_grads):
@@ -108,7 +110,7 @@ def _engine_case(pkg, ms, geometry_type, ref_atmo=None):
     viewing.add_ray(pkg.GroundViewingSolar(0.6, 0.3, 0.8, 2e5))
     viewing.add_ray(pkg.GroundViewingSolar(0.6, 1.1, 0.5, 2e5))
     if ref_atmo is not None:
-        return config, geometry, viewing, atmosphere_from_reference(
+        return config, geometry, viewing, torch_support.carry_atmosphere(
             ref_atmo, geometry, config)
     atmo = pkg.Atmosphere(geometry, config,
                           wavelengths_nm=np.array([310.0, 400.0, 550.0]))
@@ -124,7 +126,13 @@ def _engine_case(pkg, ms, geometry_type, ref_atmo=None):
 ])
 def test_engine_twostream_matches_jax(ms, geometry_type):
     config, geometry, viewing, atmo = _engine_case(sk, ms, geometry_type)
-    ref = sk.Engine(config, geometry, viewing).calculate_radiance(atmo)
+
+    def jax_side():
+        engine = sk.Engine(config, geometry, viewing)
+        return engine, engine.calculate_radiance(atmo)
+
+    ref = torch_support.jax_engine_reference(
+        jax_side, (config, geometry, viewing, atmo))
     config, geometry, viewing, atmo_t = _engine_case(
         skt, ms, geometry_type, atmo)
     got = skt.Engine(config, geometry, viewing, device="cpu")\

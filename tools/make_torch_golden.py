@@ -10,12 +10,15 @@ flux case (``flux16_case``), the 4-stream polarized case
 (``thermal16_case``, ``thermallimb16_case``), and the three 4-stream
 polarized cells of the generic per-wavelength route, over a MODIS BRDF,
 with flux observers, and the thermal limb scan (``polbrdf4_case``,
-``polflux4_case``, ``polthermallimb4_case``). Wavelengths are
+``polflux4_case``, ``polthermallimb4_case``), and the three
+successive-orders limb cells (``solimb16_case``,
+``solimb16_doinit_case``, ``polsolimb16_case``: 8 of their 64
+wavelengths, one wavelength per JAX engine call, float64 only). Wavelengths are
 independent in this model, so 8 wavelengths taken from a case's
 1024-point grid give the same values as the full grid. Runs the JAX
 engine on the CPU in float64:
 
-    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|pol16_solver|test_vec8|test_limbpol4|all]
+    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|polsolimb16|pol16_solver|tests|all] [--tests MODULE,...]
 
 and writes ``sasktran2_tpu_torch/data/golden_<case>.npz`` with the
 wavelength indices, the wavelengths, ``radiance``, the ``*_flux``
@@ -30,17 +33,13 @@ no gradients: the JAX gradient graph of the 16-stream vector solver did
 not finish compiling on the CPU in 20 minutes (13 GB resident), where the
 forward graph compiles in about a minute.
 
-``test_vec8`` and ``test_limbpol4`` hold the JAX side of two CPU tests
-whose JAX compile takes over a minute, so that the test suite runs only
-the port: the 8-stream case of
-``tests/test_torch_polarized.py::test_solve_nstream_vector_matches_jax``
-(the solver's outputs and its vjp at that test's cotangents) and the
-``limb_exact_ss_sza2_observer_basis`` case of
-``tests/test_torch_polarized_engine.py`` (every engine output, its
-dimension names, and whether the JAX engine took its polarized fast
-path). Both are
-built by the tests' own functions, which this script imports, and written
-to ``golden_test_<case>.npz``; they hold float64 values only.
+``tests`` runs the port's CPU test modules of ``TEST_MODULES`` (or those
+given by ``--tests``) in record mode (``tests/torch_support.py``): each
+test's JAX side is computed from its own inputs and written to
+``golden_<module>.npz``, with a digest of the inputs it was made from,
+which the tier-1 run then reads instead of compiling the JAX graphs. A
+test whose inputs no longer match the digest fails: rerun this after
+changing a test's inputs.
 
 It also runs the same case through the JAX engine in float32 and stores
 that run's own error against the float64 values, ``jax_f32_err_<name>``:
@@ -92,11 +91,22 @@ def main():
                             scenarios.GOLDEN_POLTHERMALLIMB4_PATH, thermal),
     }
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    tests = {"test_vec8": vec8_test_golden,
-             "test_limbpol4": limbpol4_test_golden}
+    so_cases = {
+        "solimb16": (scenarios.solimb16_case,
+                     scenarios.GOLDEN_SOLIMB16_PATH),
+        "solimb16_doinit": (scenarios.solimb16_doinit_case,
+                            scenarios.GOLDEN_SOLIMB16_DOINIT_PATH),
+        "polsolimb16": (scenarios.polsolimb16_case,
+                        scenarios.GOLDEN_POLSOLIMB16_PATH),
+    }
     parser.add_argument("--case",
-                        choices=[*cases, "pol16_solver", *tests, "all"],
+                        choices=[*cases, *so_cases, "pol16_solver",
+                                 "tests", "all"],
                         default="all")
+    parser.add_argument("--tests", default=None,
+                        help="with --case tests: the comma-separated test "
+                             "modules to record (default: all of "
+                             "TEST_MODULES)")
     args = parser.parse_args()
 
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -130,17 +140,20 @@ def main():
                 key, f32[key], ref, qu_scale=scenarios.QU_SCALE.get(
                     name, "own"))
         save(path, arrays)
+    so_idx = scenarios.SO_GOLDEN_INDICES
+    for name, (build, path) in so_cases.items():
+        if args.case not in (name, "all"):
+            continue
+        wl = scenarios.so_wavelengths()[so_idx]
+        save(path, {"indices": so_idx, "wavelengths_nm": wl,
+                    **so_golden(sk, name, build, wl)})
     if args.case in ("pol16_solver", "all"):
         save(scenarios.GOLDEN_POL16_SOLVER_PATH,
              pol16_solver(sk, solar()[idx], idx))
-    for name, make in tests.items():
-        if args.case in (name, "all"):
-            jax.config.update("jax_enable_x64", True)
-            t0 = time.perf_counter()
-            arrays = make()
-            print(f"{name}: JAX float64 on the CPU (compile included): "
-                  f"{time.perf_counter() - t0:.1f} s")
-            save(os.path.join(scenarios.DATA, f"golden_{name}.npz"), arrays)
+    if args.case in ("tests", "all"):
+        t0 = time.perf_counter()
+        record_test_goldens(args.tests.split(",") if args.tests else None)
+        print(f"tests: recorded in {time.perf_counter() - t0:.1f} s")
 
 
 def save(path, arrays):
@@ -148,6 +161,35 @@ def save(path, arrays):
     np.savez_compressed(path, **arrays)
     for k, v in arrays.items():
         print(f"    {k} {np.shape(v) or v}")
+
+
+def so_golden(sk, name, build, wl):
+    """The float64 outputs of a successive-orders cell, one wavelength per
+    JAX engine call: the JAX engine maps its wavelengths in one batch and
+    its vjp over every output row at once, and one wavelength's transport
+    gather alone is [R, S, 2, 2, 4] (about 65 MB at 51 altitudes); one
+    engine (one host build of its SO geometry, one compile) serves all
+    the wavelengths."""
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    t0 = time.perf_counter()
+    config, geometry, viewing, _ = build(sk, "float64", wl[:1])
+    engine = sk.Engine(config, geometry, viewing)
+    print(f"{name}: JAX engine constructor (SO geometry build) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    parts = []
+    for w in wl:
+        t0 = time.perf_counter()
+        atmo = build(sk, "float64", np.array([w]))[3]
+        out = engine.calculate_radiance(atmo)
+        parts.append({k: (out[k].to_numpy(), out[k].dims.index("wavelength"))
+                      for k in out.keys() if k == "radiance"
+                      or k.endswith("_flux") or k.startswith("wf_")})
+        print(f"{name}: {w:.1f} nm, JAX float64 engine call on the CPU "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: np.concatenate([p[k][0] for p in parts], axis=parts[0][k][1])
+            for k in parts[0]}
 
 
 def pol16_solver(sk, wl, idx):
@@ -206,42 +248,45 @@ def pol16_solver(sk, wl, idx):
     return arrays
 
 
-def vec8_test_golden():
-    """The JAX side of the 8-stream case of
-    ``test_solve_nstream_vector_matches_jax``: ``out_<i>`` the solver's
-    outputs, ``grad_<input>`` its vjp at the test's cotangents."""
-    import jax
-    import jax.numpy as jnp
+def record_test_goldens(modules=None):
+    """Run the port's CPU tests in record mode (``tests/torch_support.py``):
+    every ``jax_reference`` computes its JAX side, and each test module's
+    references go to ``golden_<module>.npz``. The tests' port side runs
+    and is checked as usual."""
+    import pytest
 
-    from tests.test_torch_polarized import (
-        GRAD_NAMES,
-        VEC8_CASE,
-        _cotangents,
-        _pair,
-        _problem,
-    )
+    from tests import torch_support
 
-    nstr = VEC8_CASE[0]
-    ref_fn, _ = _pair(*VEC8_CASE)
-    inputs = _problem(7 + nstr, nstr)
-    ref, vjp = jax.vjp(jax.jit(ref_fn), *[jnp.asarray(x) for x in inputs])
-    grads = vjp([jnp.asarray(c) for c in _cotangents(nstr, ref)])
-    return {**{f"out_{i}": np.asarray(r) for i, r in enumerate(ref)},
-            **{f"grad_{k}": np.asarray(g) for k, g in zip(GRAD_NAMES, grads)}}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    os.environ[torch_support.RECORD_ENV] = "1"
+    files = [os.path.join(root, "tests", f"{m}.py")
+             for m in (modules or TEST_MODULES)]
+    rc = pytest.main([*files, "-q", "-p", "no:cacheprovider",
+                      "-p", "no:randomly", "-p", "no:xdist"])
+    if rc != 0:
+        raise SystemExit(f"the port's tests failed in record mode: {rc}")
+    for module, trees in sorted(torch_support.RECORDED.items()):
+        torch_support.write(module, trees)
+        print(f"    {torch_support.path(module)}: {len(trees)} references")
 
 
-def limbpol4_test_golden():
-    """The JAX engine's outputs on the ``limb_exact_ss_sza2_observer_basis``
-    case of ``tests/test_torch_polarized_engine.py``."""
-    import sasktran2_tpu as sk
-    from tests.test_torch_polarized_engine import LIMBPOL4_CASE, _engine_case
-
-    config, geometry, viewing, atmo = _engine_case(sk, LIMBPOL4_CASE)
-    engine = sk.Engine(config, geometry, viewing)
-    out = engine.calculate_radiance(atmo)
-    return {**{k: out[k].to_numpy() for k in out.keys()},
-            **{f"dims_of_{k}": np.array(out[k].dims) for k in out.keys()},
-            "polarized_fast_ok": np.array(engine._polarized_fast_ok())}
+# the test modules whose JAX side the tier-1 run reads from golden files
+TEST_MODULES = (
+    "test_torch_brdf",
+    "test_torch_engine",
+    "test_torch_flux",
+    "test_torch_generic",
+    "test_torch_kernels",
+    "test_torch_limb",
+    "test_torch_nstream",
+    "test_torch_polarized",
+    "test_torch_polarized_engine",
+    "test_torch_singlescatter",
+    "test_torch_successive",
+    "test_torch_successive_engine",
+    "test_torch_thermal",
+    "test_torch_twostream",
+)
 
 
 if __name__ == "__main__":

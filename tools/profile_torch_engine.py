@@ -2,7 +2,8 @@
 
     python tools/profile_torch_engine.py
         [--case ground|limb|2str|flux16|pol4|pol16|limbpol16|generic16|
-                polbrdf4|polflux4|polthermallimb4]
+                polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|
+                polsolimb16]
         [--trace engine_trace.json] [--tree PATH] [--time N]
 
 Builds the case of ``sasktran2_tpu_torch.scenarios`` (``ground``: the
@@ -12,13 +13,16 @@ Builds the case of ``sasktran2_tpu_torch.scenarios`` (``ground``: the
 cases of the same names; the generic per-wavelength route's cells:
 ``generic16``, ``smoke_case`` with the engine's fast-path gates replaced
 by ``lambda: False``, and ``polbrdf4``, ``polflux4``,
-``polthermallimb4``, the last on the thermal cases' 4,000-15,000 nm grid)
-at W = 1024 in float32 on ``cuda:0``, warms up,
+``polthermallimb4``, the last on the thermal cases' 4,000-15,000 nm grid;
+the successive-orders cells ``solimb16``, ``solimb16_doinit`` and
+``polsolimb16`` on their 64-wavelength grid) at W = 1024 in float32 on
+``cuda:0``, warms up,
 then profiles one ``calculate_radiance`` call with Jacobians and one
 without under ``torch.profiler``. For each it prints the wall time, the
 device time summed over kernels and copies, the device busy share (device
 time / wall time), the number of device kernels, the launches of both
 CUDA kernels (in all and per block size K or matrix order n), the
+SO transport steps (``rt.successive.transport_step.calls``), the
 block-Thomas solves that take the torch-op loop (K > 24: the polarized
 16-stream BVP; ``ops.lanes.TORCH_OP_THOMAS_CALLS_BY_K``) with the sum of
 the kernel time launched inside that loop and its share of the call's
@@ -70,7 +74,9 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from sasktran2_tpu_torch.ops import jacobi_cuda, lanes, thomas_cuda
+    from sasktran2_tpu_torch.rt import successive
 
+    successive.transport_step.calls = 0
     thomas_cuda.thomas_solve.launches = 0
     thomas_cuda.thomas_solve.launches_by_k = {}
     jacobi_cuda.jacobi_eigh.launches = 0
@@ -109,7 +115,8 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
           f"{thomas_cuda.thomas_solve.launches} "
           f"{thomas_cuda.thomas_solve.launches_by_k}, Jacobi launches "
           f"{jacobi_cuda.jacobi_eigh.launches} "
-          f"{jacobi_cuda.jacobi_eigh.launches_by_n}", flush=True)
+          f"{jacobi_cuda.jacobi_eigh.launches_by_n}, SO transport steps "
+          f"{successive.transport_step.calls}", flush=True)
     loops = [e for e in events if e.name == TORCH_OP_THOMAS
              and e.device_type == torch.autograd.DeviceType.CPU]
     if loops:
@@ -140,6 +147,8 @@ def main():
         "limbpol16": "limbpol16_case", "generic16": "smoke_case",
         "polbrdf4": "polbrdf4_case", "polflux4": "polflux4_case",
         "polthermallimb4": "polthermallimb4_case",
+        "solimb16": "solimb16_case", "solimb16_doinit": "solimb16_doinit_case",
+        "polsolimb16": "polsolimb16_case",
     }
     parser.add_argument("--case", choices=list(cases), default="ground")
     parser.add_argument("--trace", default=None,
@@ -164,8 +173,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    grid = (scenarios.thermal_wavelengths if args.case == "polthermallimb4"
-            else scenarios.smoke_wavelengths)
+    grid = {"polthermallimb4": scenarios.thermal_wavelengths,
+            "solimb16": scenarios.so_wavelengths,
+            "solimb16_doinit": scenarios.so_wavelengths,
+            "polsolimb16": scenarios.so_wavelengths}.get(
+        args.case, scenarios.smoke_wavelengths)
     config, geometry, viewing, atmo = build(sk, "float32", grid())
     engine = sk.Engine(config, geometry, viewing, device="cuda:0")
     if args.case == "generic16":
