@@ -122,6 +122,24 @@ each of 16-19 must launch K1 and K3 at the sizes named.
     beside their bounds and library calls, on contiguous copies, and as
     the path calls them (permuted views of its lanes, which the wrappers
     copy).
+23. The optical cell o2a16 (``scenarios.o2a16_case``: an O2 A-band
+    line-by-line calculation with a Mie aerosol, 16 streams, 4 rays,
+    EngineIntegratedLineShape on 4,096 fine wavenumbers mapped onto 82
+    Gaussians): its Mie table generated on the card (seconds, the Mie
+    compute's share) and held to the JAX f64 table in
+    ``golden_o2a16.npz`` within 1e-10; the line cross sections at all
+    101 levels (ms, peak memory), held per level within 1e-10 of the
+    level's maximum at 10 levels; the engine call (cold, launches, peak
+    memory, the route, which must be the JAX engine's, then warm calls
+    with and without Jacobians as fine wavelengths/s and
+    wavelength-LOS/s); and a Monochromatic call at 16 wavenumbers (line
+    cores, wings, continuum) in f32 and f64 against the JAX f64 engine
+    (``o2a16_monochromatic`` states the gates). It must launch K1 at
+    K = 16 and K3 at n = 8, and holds both at the cell's own solver
+    inputs ([100, 16, 16, 4096] and [100, 8, 8, 4096], captured in a
+    radiance-only call at azimuth modes 0 and 15) against their plain
+    twins and a float64 truth, as phase 8 does, timed at mode 0 beside
+    their bounds and library calls.
 
 Every phase prints its end time since the script started.
 
@@ -348,12 +366,13 @@ def phase_thomas(dev, label):
     return record
 
 
-def library_dense_solve_ms(system, label, chunk=128):
+def library_dense_solve_ms(system, label, chunk=128, group_bytes=16e9):
     """Time of ``torch.linalg.solve`` on the block-tridiagonal systems
     ``system`` = (lo, di, up, r) [P, K, K, W] assembled as dense
     [W, P*K, P*K] matrices, the one PyTorch call that computes the same x
     (at about P^2 times the Thomas solve's work): ``chunk`` wavelengths a
-    call, the matrices of every chunk assembled before the clock starts.
+    call, the matrices of a group of chunks (at most ``group_bytes`` of
+    them) assembled before the clock starts, the groups' times summed.
     Prints the dense solution's largest difference from the Thomas
     kernel's relative to max |x|, as a note."""
     import torch
@@ -362,28 +381,38 @@ def library_dense_solve_ms(system, label, chunk=128):
     lo, di, up, r = system
     P, K, _, W = di.shape
     idx = torch.arange(P, device=di.device)
-    chunks = []
-    for w0 in range(0, W, chunk):
-        sl = slice(w0, min(w0 + chunk, W))
-        C = sl.stop - sl.start
-        dense = torch.zeros((C, P, K, P, K), dtype=di.dtype, device=di.device)
-        dense[:, idx, :, idx, :] = di[..., sl].permute(0, 3, 1, 2)
-        dense[:, idx[1:], :, idx[:-1], :] = lo[1:, ..., sl].permute(0, 3, 1, 2)
-        dense[:, idx[:-1], :, idx[1:], :] = up[:-1, ..., sl].permute(0, 3, 1, 2)
-        rhs = r[..., sl].permute(2, 0, 1).reshape(C, P * K, 1)
-        chunks.append((dense.reshape(C, P * K, P * K), rhs))
-    xs = [torch.linalg.solve(a, b) for a, b in chunks]
-    x = torch.cat(xs).reshape(W, P, K).permute(1, 2, 0)
+    per_chunk = chunk * (P * K) ** 2 * di.element_size()
+    group = max(1, int(group_bytes // per_chunk)) * chunk
     xk = thomas_cuda.thomas_solve(*system)
-    diff = float((x - xk).abs().max() / xk.abs().max())
-    ms = cuda_ms(lambda: [torch.linalg.solve(a, b) for a, b in chunks], 1)
+    ms, diff, calls = 0.0, 0.0, 0
+    for g0 in range(0, W, group):
+        chunks = []
+        for w0 in range(g0, min(g0 + group, W), chunk):
+            sl = slice(w0, min(w0 + chunk, W))
+            C = sl.stop - sl.start
+            dense = torch.zeros((C, P, K, P, K), dtype=di.dtype,
+                                device=di.device)
+            dense[:, idx, :, idx, :] = di[..., sl].permute(0, 3, 1, 2)
+            dense[:, idx[1:], :, idx[:-1], :] = lo[1:, ..., sl].permute(
+                0, 3, 1, 2)
+            dense[:, idx[:-1], :, idx[1:], :] = up[:-1, ..., sl].permute(
+                0, 3, 1, 2)
+            rhs = r[..., sl].permute(2, 0, 1).reshape(C, P * K, 1)
+            chunks.append((sl, dense.reshape(C, P * K, P * K), rhs))
+        for sl, a, b in chunks:
+            x = torch.linalg.solve(a, b).reshape(-1, P, K).permute(1, 2, 0)
+            diff = max(diff, float((x - xk[..., sl]).abs().max()))
+        ms += cuda_ms(lambda: [torch.linalg.solve(a, b)
+                               for _, a, b in chunks], 1)
+        calls += len(chunks)
+        del chunks
+        torch.cuda.empty_cache()
+    diff /= float(xk.abs().max())
     print(f"[{label}] library call: torch.linalg.solve on the assembled "
-          f"dense [{W}, {P * K}, {P * K}] systems ({di.dtype}, {len(chunks)} "
-          f"calls of <= {chunk}): {ms:.3f} ms for the whole batch; its x vs "
-          f"the Thomas kernel's, rel to max |x|: {diff:.3e} (a note)",
-          flush=True)
-    del chunks, xs
-    torch.cuda.empty_cache()
+          f"dense [{W}, {P * K}, {P * K}] systems ({di.dtype}, {calls} "
+          f"calls of <= {chunk}, in groups of <= {group} wavelengths): "
+          f"{ms:.3f} ms for the whole batch; its x vs the Thomas kernel's, "
+          f"rel to max |x|: {diff:.3e} (a note)", flush=True)
     return ms
 
 
@@ -829,20 +858,324 @@ def so_case(sk, build, golden_path, what, label, kernels_expected):
     return launches, so_transport_ms(sk, build, label, what)
 
 
-class Capture:
-    """Keep a detached copy of the arguments of every call of a function
-    that a module holds by name (``module.name``) while the block runs,
-    calling it as before."""
+class MieTimer:
+    """Device-synchronised wall time of the Mie compute
+    (``optical.mie``'s coefficients, efficiencies and amplitudes) while the
+    block runs: each function is wrapped, the time between a synchronize
+    before and after each call summed."""
 
-    def __init__(self, module, name):
+    NAMES = ("mie_coefficients", "efficiencies_from_coefficients",
+             "amplitudes_from_coefficients")
+
+    def __init__(self):
+        from sasktran2_tpu_torch.optical import mie
+
+        self.module, self.seconds, self.calls = mie, 0.0, 0
+
+    def __enter__(self):
+        import torch
+
+        self.orig = {n: getattr(self.module, n) for n in self.NAMES}
+
+        def timed(fn):
+            def wrapper(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return wrapper
+
+        for n, fn in self.orig.items():
+            setattr(self.module, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+def phase_o2a16(sk, label):
+    """Phase 23: the optical cell o2a16 (``scenarios.o2a16_case``) on the
+    card, against ``golden_o2a16.npz`` (JAX float64). (a) The Mie table
+    (``o2a16_mie_table``: 18 distributions x 7 wavelengths, 1,000 radii,
+    481 angles, 64 moments) generated on the card into a temporary
+    directory: seconds, the Mie compute's share, and every array against
+    the golden table within 1e-10 of its largest magnitude. (b) The line
+    cross sections at all 101 levels x 4,096 wavenumbers: ms (the second
+    of two calls) and peak device memory; per level within 1e-10 of the
+    level's largest value at the golden's 10 levels. (c) The engine call
+    (EngineIntegratedLineShape, f32, full Jacobians), as ``engine_case``
+    times its cells: the cold call, launches, peak memory, the route
+    (which must be the JAX engine's for the cell), then warm calls
+    (3, or 1 where the cold call took over 60 s) with and without
+    Jacobians, as fine wavelengths/s and wavelength-LOS/s, and the rows'
+    share; the device memory resident before the call (what earlier
+    phases keep) is printed beside the peak. (d) A Monochromatic call on
+    the golden's 16 wavenumbers (line cores, wings, continuum) in float32
+    and float64 against the golden (``o2a16_monochromatic``). (e) K1 and
+    K3 at the cell's own solver inputs (``o2a16_solver_instances``).
+    Returns the launch counts of the engine's cold call and the records
+    of K1 and K3 at those inputs."""
+    import tempfile
+
+    import torch
+    from sasktran2_tpu_torch import scenarios as sc
+
+    golden = dict(np.load(sc.GOLDEN_O2A16_PATH))
+    wvn = sc.O2A16_WAVENUMBERS
+    W = len(wvn)
+
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the Mie table
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with MieTimer() as mt:
+            table = sc.o2a16_mie_table(sk, root)
+        table_s = time.perf_counter() - t0
+        with np.load(table.data_file) as f:
+            arrays = {k: f[k] for k in f.files}
+    errs = {}
+    for key in ("xs_total", "xs_scattering", "lm_a1", "lm_a2", "lm_a3",
+                "lm_a4", "lm_b1", "lm_b2"):
+        ref = golden[f"table_{key}"]
+        check(arrays[key].shape == ref.shape, f"o2a16 table {key} shape")
+        errs[key] = float(np.max(np.abs(arrays[key] - ref))
+                          / np.max(np.abs(ref)))
+    print(f"[{label}] o2a16 Mie table on the card (18 distributions x 7 "
+          f"wavelengths, 1,000 radii, 481 angles, 64 moments): "
+          f"{table_s:.2f} s, of which the Mie compute {mt.seconds:.2f} s "
+          f"({mt.seconds / table_s:.3f}) in {mt.calls} calls; vs the JAX "
+          f"f64 golden table, rel to each array's max: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (<= 1e-10); the JAX package's own batch at 750 nm has NaN "
+          f"members per grid point {golden['jax_batch_nan_members_750nm']}",
+          flush=True)
+    for k, v in errs.items():
+        check(v <= 1e-10, f"o2a16 Mie table {k} vs the JAX golden")
+
+    # (b) the line cross sections at all 101 levels
+    config, geometry, viewing, atmo = sc.o2a16_case(sk, "float32", wvn, table)
+    levels = golden["xs_levels"]
+    check(np.array_equal(atmo.pressure_pa[levels], golden["xs_pressure_pa"])
+          and np.array_equal(atmo.temperature_k[levels],
+                             golden["xs_temperature_k"]),
+          "o2a16: the golden's levels have another pressure or temperature")
+    absorber = sk.optical.LineAbsorber(sc.o2a16_catalogue(sk))
+    check(absorber.device.type == "cuda", "the line absorber is not on cuda")
+    xs_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xs = absorber.cross_section_grid(wvn, atmo.pressure_pa,
+                                         atmo.temperature_k)
+        xs_ms.append((time.perf_counter() - t0) * 1e3)
+    xs_peak = torch.cuda.max_memory_allocated() / 1e9
+    per_level = (np.max(np.abs(xs[levels] - golden["xs"]), axis=1)
+                 / np.max(np.abs(golden["xs"]), axis=1))
+    print(f"[{label}] o2a16 line cross sections on the card, "
+          f"{len(atmo.pressure_pa)} levels x {W} wavenumbers x "
+          f"{sc.O2A16_NUM_LINES} lines (f64, blocks of "
+          f"{max(1, absorber.max_block_elements // (512 * W))} levels): "
+          f"{xs_ms[0]:.1f} ms cold, {xs_ms[1]:.1f} ms warm (to the host), "
+          f"peak device memory {xs_peak:.2f} GB; vs the JAX f64 golden at "
+          f"levels {levels.tolist()}, per level rel to its max: max "
+          f"{per_level.max():.3e} (<= 1e-10)", flush=True)
+    check(np.all(np.isfinite(xs)) and per_level.max() <= 1e-10,
+          "o2a16 cross sections vs the JAX golden")
+
+    # (c) the engine call
+    engine = sk.Engine(config, geometry, viewing)  # no device: the card
+    check(engine._device.type == "cuda", "the engine did not default to cuda")
+    nlos = len(viewing.observer_rays)
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = engine.calculate_radiance(atmo)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    route = "fast path" if engine._fast_route else "generic"
+    jax_route = (bool(golden["twostream_fast_ok"])
+                 or bool(golden["polarized_fast_ok"]))
+    print(f"[{label}] o2a16 nstr=16 P=100 nlos={nlos} Wf={W} -> Wo="
+          f"{len(sc.o2a16_output_centers())} f32 with Jacobians: first call "
+          f"{first_s:.2f} s, kernel launches {launches}, peak device memory "
+          f"{peak_gb:.2f} GB ({resident_gb:.2f} GB of it resident before "
+          f"the call), route {route} (the JAX engine's gates for the "
+          f"cell: {'fast path' if jax_route else 'generic'}); azimuth "
+          f"modes solved {engine._num_azi_eff}", flush=True)
+    check(engine._fast_route == jax_route
+          and engine._twostream_fast_ok() == bool(golden["twostream_fast_ok"])
+          and engine._polarized_fast_ok() == bool(golden["polarized_fast_ok"]),
+          "o2a16: the route is not the JAX engine's")
+    check(launches["thomas_by_k"].get(16, 0) > 0
+          and launches["jacobi_by_n"].get(8, 0) > 0,
+          "o2a16: K1 at K = 16 or K3 at n = 8 was not launched")
+    check_no_jax(label)
+    rad = out["radiance"].to_numpy()
+    nout = len(sc.o2a16_output_centers())
+    names = [k for k in out.keys() if k.startswith("wf_")]
+    finite = np.isfinite(rad).all() and all(
+        np.isfinite(out[k].to_numpy()).all() for k in names)
+    check(rad.shape == (nout, nlos, 1) and finite and (rad > 0).all(),
+          f"o2a16: radiance shape {rad.shape}, finite {finite}")
+    check(np.allclose(out.coords["wavelength"],
+                      1e7 / sc.o2a16_output_centers(), rtol=0, atol=0),
+          "o2a16: the output wavelengths are not the basis centres")
+    print(f"[{label}] o2a16: radiance [{nout}, {nlos}, 1] and {len(names)} "
+          f"wf_* finite, radiance > 0, on the output basis", flush=True)
+    reps = 1 if first_s > 60.0 else 3
+    times = timed_calls(engine, atmo, reps)
+    med_jac = statistics.median(times)
+    atmo.calculate_derivatives = False
+    torch.cuda.reset_peak_memory_stats()
+    times_rad = timed_calls(engine, atmo, reps)
+    med = statistics.median(times_rad)
+    print(f"[{label}] o2a16 warm calls with Jacobians (s): "
+          f"{[round(t, 4) for t in times]}; median {med_jac:.4f} s = "
+          f"{W / med_jac:.1f} wavelengths/s = {W * nlos / med_jac:.1f} "
+          f"wavelength-LOS/s; radiance only {[round(t, 4) for t in times_rad]}"
+          f"; median {med:.4f} s = {W / med:.1f} wavelengths/s = "
+          f"{W * nlos / med:.1f} wavelength-LOS/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; Jacobian rows: "
+          f"{nlos}, ({med_jac:.4f} - {med:.4f}) / {nlos} = "
+          f"{(med_jac - med) / nlos:.4f} s per row, "
+          f"{(med_jac - med) / med_jac:.3f} of the call (fine wavelengths; "
+          f"K1 / K3 launches per call with Jacobians "
+          f"{launches['thomas_by_k'].get(16, 0)} / "
+          f"{launches['jacobi_by_n'].get(8, 0)})", flush=True)
+    RATES["o2a16"] = (W / med_jac, W / med)
+    del out, engine, atmo
+
+    # (d) Monochromatic at the golden's 16 wavenumbers
+    idx = golden["indices"]
+    check(np.array_equal(wvn[idx], golden["wavenumbers_cminv"]),
+          "o2a16: the golden is for other wavenumbers")
+    o2a16_monochromatic(sk, label, golden, wvn[idx], table)
+    return launches, o2a16_solver_instances(sk, label, wvn, table)
+
+
+def o2a16_solver_instances(sk, label, wvn, table):
+    """Phase 23 (e): K1 (K = 16) and K3 (n = 8) at o2a16's own solver
+    inputs, as the scalar fast path (``rt.disco_nstream``, one
+    eigensolve and one block-Thomas solve per azimuth mode) hands them
+    over in a radiance-only f32 call on all fine wavenumbers: azimuth
+    modes 0 and 15 captured, each held against the plain twin and a
+    float64 truth with phase 8's gates (``phase_thomas_instance``,
+    ``phase_jacobi_instance``), mode 0 timed beside the bound and the
+    library call. Returns the (thomas, jacobi) records."""
+    from sasktran2_tpu_torch import scenarios as sc
+    from sasktran2_tpu_torch.rt import disco_nstream
+
+    eig, bvp, calls = capture_engine_inputs(
+        sk, lambda sk, dtype, wl: sc.o2a16_case(sk, dtype, wl, table), wvn,
+        module=disco_nstream, keep=(0, 15))
+    check(calls == (16, 16) and len(eig) == 2 and len(bvp) == 2,
+          f"o2a16: {calls} eigensolves and block-Thomas solves in one "
+          "radiance-only call (16 and 16 expected, one per azimuth mode)")
+    check(tuple(bvp[0][1].shape) == (100, 16, 16, len(wvn))
+          and tuple(eig[0].shape) == (100, 8, 8, len(wvn)),
+          f"o2a16: solver inputs {tuple(bvp[0][1].shape)} and "
+          f"{tuple(eig[0].shape)}")
+    thomas_rec = phase_thomas_instance(bvp[0], label, "o2a16 mode 0")
+    jacobi_rec = phase_jacobi_instance(eig[0], label, "o2a16 mode 0")
+    phase_thomas_instance(bvp[1], label, "o2a16 mode 15", timed=False)
+    phase_jacobi_instance(eig[1], label, "o2a16 mode 15", timed=False)
+    return thomas_rec, jacobi_rec
+
+
+O2A16_LOW_KM = 60.0
+
+
+def o2a16_monochromatic(sk, label, golden, wvn, table):
+    """Phase 23 (d): a Monochromatic call of o2a16 at the golden's
+    wavenumbers in float32 and float64 on the card against the JAX
+    float64 golden, by ``scenarios.golden_error`` (radiance per element,
+    each ``wf_*`` against its largest magnitude). Gates: radiance 2e-3
+    (f32) and 1e-8 (f64) per element; each ``wf_*`` 5e-2 (f32) and 1e-8
+    (f64) of its largest magnitude. Where the JAX package's own fast path
+    and generic route differ by more than 1e-8 in float64
+    (``jax_route_err_<name>``: the aerosol's and the Rayleigh pressure
+    weighting functions, whose upper levels are ill-conditioned, PERF.md,
+    ROADMAP Queue 3), the levels below ``O2A16_LOW_KM`` are held to those
+    gates (still against the largest magnitude of the whole column) and
+    the whole column to 1e-7 (f64) and to twice the JAX package's own f32
+    error (f32); the f32 error per 10 km of altitude is printed. Every
+    output must be finite."""
+    from sasktran2_tpu_torch import scenarios as sc
+
+    for dtype in ("float32", "float64"):
+        config, geometry, viewing, atmo = sc.o2a16_case(
+            sk, dtype, wvn, table, mode="Monochromatic")
+        low = geometry.altitudes() < O2A16_LOW_KM * 1e3
+        out = sk.Engine(config, geometry, viewing).calculate_radiance(atmo)
+        f32 = dtype == "float32"
+        parts, bands = [], []
+        for name in [k for k in golden if k == "radiance"
+                     or k.startswith("wf_")]:
+            got = out[name].to_numpy()
+            check(np.all(np.isfinite(got)), f"o2a16 {dtype}: {name} finite")
+            err = sc.golden_error(name, got, golden[name])
+            route = float(golden[f"jax_route_err_{name}"])
+            jax_f32 = float(golden[f"jax_f32_err_{name}"])
+            tol = 2e-3 if name == "radiance" and f32 else (
+                5e-2 if f32 else 1e-8)
+            note = f"JAX f32 {jax_f32:.3e}" if f32 else \
+                f"JAX routes {route:.3e}"
+            if name == "radiance" or route <= 1e-8:
+                parts.append(f"{name} {err:.3e} (<= {tol:.3g}; {note})")
+                check(err <= tol, f"o2a16 Monochromatic {dtype}: {name}")
+                continue
+            check(out[name].dims[0].endswith("altitude")
+                  and len(low) == len(got),
+                  f"o2a16: {name} is not on the altitude grid")
+            diff = np.abs(got - golden[name]) / np.max(np.abs(golden[name]))
+            err_low = float(diff[low].max())
+            tol_all = 2.0 * jax_f32 if f32 else 1e-7
+            parts.append(
+                f"{name} below {O2A16_LOW_KM:g} km {err_low:.3e} (<= "
+                f"{tol:.3g}), whole column {err:.3e} (<= {tol_all:.3g}; "
+                f"{note})")
+            check(err_low <= tol and err <= tol_all,
+                  f"o2a16 Monochromatic {dtype}: {name}")
+            if f32:
+                per_10km = [float(diff[i:i + 10].max())
+                            for i in range(0, len(got), 10)]
+                bands.append(f"{name} " + " ".join(
+                    f"{e:.2e}" for e in per_10km))
+        print(f"[{label}] o2a16 Monochromatic {dtype} W={len(wvn)} on the "
+              f"card vs the JAX f64 golden: " + ", ".join(parts), flush=True)
+        if bands:
+            print(f"[{label}] o2a16 Monochromatic f32 error by 10 km of "
+                  f"altitude (0-9, 10-19, ..., 100 km), rel to the column's "
+                  f"max: "
+                  + "; ".join(bands), flush=True)
+
+
+class Capture:
+    """Keep a detached copy of the arguments of every call (or of the
+    calls numbered in ``keep``, from 0) of a function that a module holds
+    by name (``module.name``) while the block runs, calling it as before;
+    ``calls`` counts the calls."""
+
+    def __init__(self, module, name, keep=None):
         self.module, self.name, self.args = module, name, []
+        self.keep, self.calls = keep, 0
 
     def __enter__(self):
         fn = self.orig = getattr(self.module, self.name)
 
         def wrapper(*args, **kw):
-            self.args.append([a.detach().clone() if hasattr(a, "detach")
-                              else a for a in args])
+            if self.keep is None or self.calls in self.keep:
+                self.args.append([a.detach().clone() if hasattr(a, "detach")
+                                  else a for a in args])
+            self.calls += 1
             return fn(*args, **kw)
 
         setattr(self.module, self.name, wrapper)
@@ -852,24 +1185,27 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
-def capture_engine_inputs(sk, build, wl, module=None):
+def capture_engine_inputs(sk, build, wl, module=None, keep=None):
     """The eigensolve and block-Thomas inputs of an engine case's
     radiance-only f32 call on the card, as ``module`` (default: the
     polarized solver's ``rt.disco_vec_minor``, one call per mode; the
+    scalar fast path's ``rt.disco_nstream``, one call per mode; the
     generic route's ``ops.lanes``, one call per solve) hands them to
     ``lane_jacobi_eigh_scan`` and ``lane_block_thomas_solve``: two lists,
-    one entry per call, of [P, n, n, W] matrices and (lo, di, up, rhs)
-    systems."""
+    one entry per call (or per call numbered in ``keep``), of [P, n, n, W]
+    matrices and (lo, di, up, rhs) systems, and the number of calls of
+    each."""
     from sasktran2_tpu_torch.rt import disco_vec_minor
 
     module = disco_vec_minor if module is None else module
     config, geometry, viewing, atmo = build(sk, "float32", wl)
     atmo.calculate_derivatives = False
     engine = sk.Engine(config, geometry, viewing)
-    with Capture(module, "lane_jacobi_eigh_scan") as eig, \
-            Capture(module, "lane_block_thomas_solve") as bvp:
+    with Capture(module, "lane_jacobi_eigh_scan", keep) as eig, \
+            Capture(module, "lane_block_thomas_solve", keep) as bvp:
         engine.calculate_radiance(atmo)
-    return [c[0] for c in eig.args], [c[:4] for c in bvp.args]
+    return ([c[0] for c in eig.args], [c[:4] for c in bvp.args],
+            (eig.calls, bvp.calls))
 
 
 def eigen_residual(a, w, v):
@@ -886,13 +1222,13 @@ def eigen_residual(a, w, v):
     return res, float((vtv - eye).abs().max())
 
 
-def phase_jacobi_instance(a32, label, what):
+def phase_jacobi_instance(a32, label, what, timed=True):
     """K3 at an engine's own matrices ``a32`` [P, n, n, W] (f32): the
     kernel against its plain twin (eigenvalues, sorted, against a float64
     truth of 12 sweeps: error <= max(4 x the plain twin's, 1e-5), relative
     to max |A|), the eigen-residual of both at the engine's 7 sweeps (the
-    kernel's <= 1e-5 of max |A|) and of the kernel at 10, time, bound and
-    ``torch.linalg.eigh``'s time."""
+    kernel's <= 1e-5 of max |A|) and of the kernel at 10; where ``timed``,
+    the record: time, bound and ``torch.linalg.eigh``'s time."""
     import torch
     from sasktran2_tpu_torch.ops import jacobi_cuda
 
@@ -917,6 +1253,8 @@ def phase_jacobi_instance(a32, label, what):
           flush=True)
     check(err_k <= max(4.0 * err_p, 1e-5), f"jacobi instance n={n}")
     check(res_k <= 1e-5, f"jacobi instance n={n}: eigen-residual")
+    if not timed:
+        return None
     rec = {"max_abs_err": float((w - wp).abs().max())}
     rec["ms"] = cuda_ms(lambda: jacobi_cuda.jacobi_eigh(a32, 7), 10)
     rec["plain_ms"] = cuda_ms(lambda: jacobi_cuda.jacobi_eigh_plain(a32, 7), 2)
@@ -926,11 +1264,12 @@ def phase_jacobi_instance(a32, label, what):
     return rec
 
 
-def phase_thomas_instance(system32, label, what):
+def phase_thomas_instance(system32, label, what, timed=True):
     """K1/K2 at an engine's own block-tridiagonal system (f32): the kernel
     and its plain twin against a float64 solve of the same system, error
-    relative to max |x| <= max(4 x the plain twin's, 1e-5); time, bound
-    and the dense ``torch.linalg.solve``'s time."""
+    relative to max |x| <= max(4 x the plain twin's, 1e-5); where
+    ``timed``, the record: time, bound and the dense
+    ``torch.linalg.solve``'s time."""
     import torch
     from sasktran2_tpu_torch.ops import thomas_cuda
 
@@ -946,6 +1285,8 @@ def phase_thomas_instance(system32, label, what):
           f"{W}] f32: vs f64 solve rel {err_k:.3e} (<= max(4 x plain "
           f"{err_p:.3e}, 1e-5))", flush=True)
     check(err_k <= max(4.0 * err_p, 1e-5), f"thomas instance K={K}")
+    if not timed:
+        return None
     rec = {"max_abs_err": float((xk - xp).abs().max())}
     rec["ms"] = cuda_ms(lambda: thomas_cuda.thomas_solve(*system32), 20)
     rec["plain_ms"] = cuda_ms(
@@ -1169,8 +1510,8 @@ def main():
     phase_done(label, "2-7")
     # --- phase 8: the kernel instances of the polarized path ----------------
     # each at a polarized engine's own inputs (a radiance-only call)
-    eig4, bvp4 = capture_engine_inputs(sk, pol4_case, wl)
-    eig16, bvp16 = capture_engine_inputs(sk, pol16_case, wl)
+    eig4, bvp4, _ = capture_engine_inputs(sk, pol4_case, wl)
+    eig16, bvp16, _ = capture_engine_inputs(sk, pol16_case, wl)
     jacobi24_rec = phase_jacobi_instance(eig16[0], label, "pol16")
     print(f"[{label}] note, not measured in this run: the local-memory n > 8 "
           "branch that the shared-memory one replaced took 124.197 ms per "
@@ -1305,7 +1646,7 @@ def main():
     )
     # K1 and K3 at the DO seed's own inputs: the one plane-parallel solve
     # of all 16 azimuth modes and 64 wavelengths ([50, ..., 16 x 64])
-    eig_do, bvp_do = capture_engine_inputs(
+    eig_do, bvp_do, _ = capture_engine_inputs(
         sk, solimb16_doinit_case, so_wavelengths(), module=lanes)
     check(len(eig_do) == 1 and len(bvp_do) == 1,
           f"solimb16_doinit: {len(eig_do)} eigensolves and {len(bvp_do)} "
@@ -1333,6 +1674,10 @@ def main():
     )
     phase_done(label, 22)
 
+    # --- phase 23: the optical cell ---------------------------------------------
+    o2a_launches, (thomas_o2a_rec, jacobi_o2a_rec) = phase_o2a16(sk, label)
+    phase_done(label, 23)
+
     check_no_jax(label)
     by_path = {
         "ground16": launches, "limb16": limb_launches, "flux16": flux_launches,
@@ -1341,7 +1686,7 @@ def main():
         "thermal16": thermal_launches, "thermallimb16": thermallimb_launches,
         "generic16": generic_launches, "polbrdf4": polbrdf_launches,
         "polflux4": polflux_launches, "polthermallimb4": polthermal_launches,
-        "solimb16_doinit": sodo_launches,
+        "solimb16_doinit": sodo_launches, "o2a16": o2a_launches,
     }
 
     def instance(kernel, size, main):
@@ -1370,6 +1715,10 @@ def main():
          **thomas_do_rec},
         {"name": "jacobi_eigh n=8 (solimb16_doinit)", **jacobi,
          **instance("jacobi", 8, "solimb16_doinit"), **jacobi_do_rec},
+        {"name": "thomas_block_tridiag_solve K=16 (o2a16)", **thomas,
+         **instance("thomas", 16, "o2a16"), **thomas_o2a_rec},
+        {"name": "jacobi_eigh n=8 (o2a16)", **jacobi,
+         **instance("jacobi", 8, "o2a16"), **jacobi_o2a_rec},
     ]
     torch_op_paths = [
         {"name": "thomas_block_tridiag_solve K=48 (pol16)",

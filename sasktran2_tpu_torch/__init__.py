@@ -40,7 +40,15 @@ from .viewinggeo import (
     ViewingGeometry,
 )
 
-from . import climatology, constituent, optical
+from . import (
+    basis,
+    climatology,
+    constituent,
+    database,
+    legendre,
+    mie,
+    optical,
+)
 from .engine import Engine
 
 __all__ = [
@@ -65,7 +73,11 @@ __all__ = [
     "StokesBasis",
     "TangentAltitudeSolar",
     "ViewingGeometry",
+    "basis",
     "climatology",
     "constituent",
+    "database",
+    "legendre",
+    "mie",
     "optical",
 ]

@@ -14,9 +14,9 @@ produces a plain dict-of-numpy pytree that the Engine feeds to its jitted
 compute function; the constituent pipeline runs in numpy exactly once per
 calculation, like the reference.
 
-(Copy of ``sasktran2_tpu/atmosphere.py`` for the PyTorch port: monochromatic
-spectral grids on a 1D geometry. The integrated line-shape modes and 2D
-storage raise ``NotImplementedError``.)
+(Copy of ``sasktran2_tpu/atmosphere.py`` for the PyTorch port, on a 1D
+geometry: every spectral grid mode, the two integrated line-shape modes
+included. 2D storage raises ``NotImplementedError``.)
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import logging
 
 import numpy as np
 
+from .basis import Grid, mapping_matrix
 from .config import Config, EmissionSource, SpectralGridMode
 
 
@@ -215,19 +216,40 @@ class Atmosphere:
     ):
         self.model_geometry = model_geometry
         self.config = config
-        if config.spectral_grid_mode != SpectralGridMode.Monochromatic:
-            msg = (
-                f"SpectralGridMode.{config.spectral_grid_mode.name} is not "
-                "ported to the PyTorch engine yet (ROADMAP Queue 1 slice 12, "
-                "optical compute)"
-            )
-            raise NotImplementedError(msg)
         if hasattr(model_geometry, "num_horizontal"):
             msg = (
                 "2D atmosphere storage is not ported to the PyTorch engine "
-                "yet (ROADMAP, Next: 2D atmosphere storage)"
+                "yet (ROADMAP Queue 1 item 8, 2D geometry)"
             )
             raise NotImplementedError(msg)
+        self._integrated_lineshape = (
+            config.spectral_grid_mode
+            == SpectralGridMode.AtmosphereIntegratedLineShape
+        )
+        # EngineIntegratedLineShape: the ENGINE runs on the fine grid and
+        # the output radiances/WFs are mapped onto the output basis
+        # afterwards (reference rebasis grid mapping,
+        # ``rust/rebasis/src/grid.rs:64``, applied at engine output)
+        self._engine_lineshape = (
+            config.spectral_grid_mode
+            == SpectralGridMode.EngineIntegratedLineShape
+        )
+        self._spectral_grid = spectral_grid
+        self._spectral_reduce = None
+        if self._integrated_lineshape or self._engine_lineshape:
+            if spectral_grid is None:
+                msg = (
+                    f"SpectralGridMode.{config.spectral_grid_mode.name} "
+                    "requires a spectral_grid (output basis) on the "
+                    "Atmosphere"
+                )
+                raise ValueError(msg)
+            if wavelengths_nm is None and wavenumbers_cminv is None:
+                msg = (
+                    "integrated line shape mode requires an explicit fine "
+                    "grid (wavelengths_nm or wavenumbers_cminv)"
+                )
+                raise ValueError(msg)
 
         if wavelengths_nm is not None:
             self.wavelengths_nm = np.atleast_1d(
@@ -251,6 +273,44 @@ class Atmosphere:
         )
         nalt = model_geometry.num_altitudes
         nleg = max(config.num_streams, config.num_singlescatter_moments)
+        if self._integrated_lineshape or self._engine_lineshape:
+            # constituents evaluate on the fine grid; the storage is reduced
+            # onto the output basis grid after the pipeline (reference
+            # ``rust/sasktran2-rs/src/optical/traits.rs:59-76``:
+            # UpsampledStorageInputs + reduce_optical via mapping_matrix)
+            if wavenumbers_cminv is not None:
+                fine = Grid.from_deltas(
+                    np.sort(np.atleast_1d(
+                        np.asarray(wavenumbers_cminv, dtype=np.float64)
+                    ))
+                )
+                # output wavelengths from the basis centers (wavenumber
+                # coordinate)
+                self._output_wavelengths_nm = 1e7 / np.asarray(
+                    spectral_grid.centers
+                )
+            else:
+                fine = Grid.from_deltas(np.sort(self.wavelengths_nm))
+                self._output_wavelengths_nm = np.asarray(
+                    spectral_grid.centers
+                )
+            # fine inputs must be sorted for the interp rows; require it so
+            # column order matches the user's wavelength arrays
+            fine_coord = (
+                np.atleast_1d(np.asarray(wavenumbers_cminv, dtype=np.float64))
+                if wavenumbers_cminv is not None
+                else self.wavelengths_nm
+            )
+            if not np.all(np.diff(fine_coord) > 0):
+                msg = "integrated line shape mode requires a sorted fine grid"
+                raise ValueError(msg)
+            self._spectral_reduce = mapping_matrix(fine, spectral_grid)
+            self._nfine = nw
+            self._nout = len(spectral_grid)
+        else:
+            self._output_wavelengths_nm = None
+        self._nalt_storage = nalt
+        self._nleg_storage = nleg
         self.storage = AtmosphereStorage(nalt, nw, nleg, config.num_stokes)
         self.surface = Surface(nw)
         self.calculate_derivatives = calculate_derivatives
@@ -308,6 +368,19 @@ class Atmosphere:
         ``atmosphere.py:700-835``)."""
         if len(self._constituents) > 0:
             logging.debug("Setting atmosphere from constituents")
+            if (
+                self._integrated_lineshape
+                and self.storage.nwavel != self._nfine
+            ):
+                # previous run reduced the storage; rebuild at fine size
+                self.storage = AtmosphereStorage(
+                    self._nalt_storage, self._nfine, self._nleg_storage,
+                    self.nstokes,
+                )
+                self.surface = Surface(self._nfine)
+                self._leg_view = LegendreStorageView(
+                    self.storage.leg_coeff, self.nstokes
+                )
             self.storage.set_zero()
             self.surface.set_zero()
             self.storage._derivative_mappings = {}
@@ -335,6 +408,13 @@ class Atmosphere:
                 m = self.storage.get_derivative_mapping("wf_emission")
                 m.d_emission[:] = 1.0
 
+        if (
+            self._integrated_lineshape
+            and self.storage.nwavel == self._nfine
+            and self._nfine != self._nout
+        ):
+            self._reduce_spectral()
+
         self._unscaled_ssa = self.storage.ssa.copy()
         self._unscaled_extinction = self.storage.total_extinction.copy()
 
@@ -342,6 +422,81 @@ class Atmosphere:
             self._apply_delta_m_scaling()
 
         return self._core_pytree()
+
+    def _reduce_spectral(self):
+        """Reduce the fine-grid storage onto the output basis grid
+        (integrated line shape mode). Extensive quantities (k, k_scat,
+        k_scat-weighted greeks) reduce linearly with the mapping matrix and
+        are then renormalized — the same order as the reference's
+        ``reduce_optical`` (linear in cross sections, before normalization).
+        Derivative mappings get the matching quotient-rule chain."""
+        M = self._spectral_reduce  # [Wo, Wf]
+
+        def red(x):
+            # reduce the trailing wavelength axis
+            return x @ M.T
+
+        s = self.storage
+        k_f = s.total_extinction          # [A, Wf]
+        w_f = s.ssa
+        ks_f = k_f * w_f
+        k_o = red(k_f)
+        ks_o = red(ks_f)
+        w_o = np.divide(ks_o, k_o, out=np.zeros_like(ks_o), where=k_o > 0)
+        beta_f = s.leg_coeff              # [L*, A, Wf] (intensive)
+        kb_o = red(ks_f[None] * beta_f)
+        beta_o = np.divide(
+            kb_o, ks_o[None],
+            out=np.zeros_like(kb_o),
+            where=ks_o[None] > 0,
+        )
+
+        for m in s._derivative_mappings.values():
+            dk_f = m.d_extinction.copy()
+            dw_f = m.d_ssa.copy()
+            dks_f = w_f * dk_f + k_f * dw_f
+            dk_o = red(dk_f)
+            dks_o = red(dks_f)
+            m.d_extinction = dk_o
+            m.d_ssa = np.divide(
+                dks_o - w_o * dk_o, k_o,
+                out=np.zeros_like(dk_o), where=k_o > 0,
+            )
+            m.d_emission = red(m.d_emission)
+            if m.d_leg_coeff is not None and np.any(m.d_leg_coeff):
+                db_f = m.d_leg_coeff * m.scat_factor[None]
+                if db_f.shape[0] < beta_f.shape[0]:
+                    pad = np.zeros(
+                        (beta_f.shape[0] - db_f.shape[0],) + db_f.shape[1:]
+                    )
+                    db_f = np.concatenate([db_f, pad], axis=0)
+                dkb_o = red(dks_f[None] * beta_f + ks_f[None] * db_f)
+                m.d_leg_coeff = np.divide(
+                    dkb_o - beta_o * dks_o[None], ks_o[None],
+                    out=np.zeros_like(dkb_o), where=ks_o[None] > 0,
+                )
+            elif m.d_leg_coeff is not None:
+                m.d_leg_coeff = np.zeros(
+                    m.d_leg_coeff.shape[:-1] + (self._nout,)
+                )
+            m.scat_factor = np.ones_like(k_o)
+
+        s.total_extinction = k_o
+        s.ssa = w_o
+        s.leg_coeff = beta_o
+        s.emission_source = red(s.emission_source)
+        s.solar_irradiance = M @ s.solar_irradiance
+        s.f = np.zeros_like(k_o)
+        self._leg_view = LegendreStorageView(s.leg_coeff, self.nstokes)
+
+        surf = self.surface
+        surf.albedo = M @ surf.albedo
+        surf.emission = M @ surf.emission
+        if surf.brdf_args is not None:
+            surf.brdf_args = M @ surf.brdf_args
+        surf._nwavel = self._nout
+        for sm in surf._derivative_mappings.values():
+            sm.d_brdf = M @ sm.d_brdf
 
     def _apply_delta_m_scaling(self):
         """Delta-m scaling: f = beta_M / (2M+1); k* = (1 - w f) k;

@@ -10,6 +10,15 @@ from .emission import (
     planck_blackbody_radiance,
 )
 from .rayleigh import Rayleigh
+from .scatterer import (
+    ExtinctionScatterer,
+    ExtinctionScatterer2D,
+    GaussianHeightExtinction,
+    HGScatteringOptical,
+    MieScatteringOptical,
+    NumberDensityScatterer,
+    NumberDensityScatterer2D,
+)
 from .vmr_absorber import VMRAltitudeAbsorber
 
 # the reference's name for it
@@ -18,8 +27,15 @@ MonochromaticVolumeEmissionRate = VolumeEmissionRate
 __all__ = [
     "MODIS",
     "Constituent",
+    "ExtinctionScatterer",
+    "ExtinctionScatterer2D",
+    "GaussianHeightExtinction",
+    "HGScatteringOptical",
     "LambertianSurface",
+    "MieScatteringOptical",
     "MonochromaticVolumeEmissionRate",
+    "NumberDensityScatterer",
+    "NumberDensityScatterer2D",
     "Rayleigh",
     "SnowKokhanovsky",
     "SurfaceThermalEmission",

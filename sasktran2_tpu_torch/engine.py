@@ -32,8 +32,9 @@ divergence fluxes at flux observers; scalar and polarized (I, Q, U)
 radiance with the Stokes-basis rotations; successive orders of
 scattering (``rt/successive.py``: scalar, DO-initialised, on a grid of
 solar zenith angles, with refracted internal rays, and polarized), which
-takes the generic route as in the JAX engine. 2D geometry, ``mesh=``,
-viewing-geometry containers and EngineIntegratedLineShape raise
+takes the generic route as in the JAX engine; every spectral grid mode,
+EngineIntegratedLineShape (the outputs mapped onto the output basis)
+included. 2D geometry, ``mesh=`` and viewing-geometry containers raise
 ``NotImplementedError`` naming their ROADMAP slice.
 """
 
@@ -54,7 +55,6 @@ from .config import (
     MultipleScatterSource,
     OccultationSource,
     SingleScatterSource,
-    SpectralGridMode,
     StokesBasis,
 )
 from .dataset import DataArray, Dataset
@@ -198,11 +198,6 @@ class Engine:
                 f"viewing geometry {type(self._viewing).__name__} (the port "
                 "takes sasktran2_tpu_torch.ViewingGeometry)",
                 "ROADMAP, Next: ViewingGeometryContainer",
-            )
-        if cfg.spectral_grid_mode == SpectralGridMode.EngineIntegratedLineShape:
-            raise _not_ported(
-                "EngineIntegratedLineShape output mapping",
-                "ROADMAP Queue 1 slice 12, optical compute",
             )
         for ray in self._rays:
             if not isinstance(ray, (
@@ -1206,7 +1201,10 @@ class Engine:
                 out[f"{_FLUX_NAMES[ftype]}_flux"] = DataArray(
                     flux[:, ti], ("wavelength", "flux_location")
                 )
-        if atmosphere.wavelengths_nm is not None:
+        out_wavel = getattr(atmosphere, "_output_wavelengths_nm", None)
+        if out_wavel is not None:
+            out.coords["wavelength"] = out_wavel
+        elif atmosphere.wavelengths_nm is not None:
             out.coords["wavelength"] = atmosphere.wavelengths_nm
         out.coords["stokes"] = ["I", "Q", "U"][:ns]
         if needs_jac:
@@ -1215,7 +1213,26 @@ class Engine:
             out["los_optical_depth"] = DataArray(
                 host[-1], ("wavelength", "los")
             )
+        if getattr(atmosphere, "_engine_lineshape", False):
+            self._map_to_output_basis(out, atmosphere._spectral_reduce)
         return out
+
+    @staticmethod
+    def _map_to_output_basis(out: Dataset, M):
+        """EngineIntegratedLineShape (``sasktran2_tpu/engine.py:1844-1858``):
+        the engine ran on the fine grid; every wavelength-dimensioned
+        output (radiance, ``wf_*``, fluxes, LOS optical depth) is mapped
+        onto the output basis with the [Wo, Wf] matrix ``M``."""
+        for vname in list(out.keys()):
+            da = out[vname]
+            if "wavelength" not in da.dims:
+                continue
+            ax = da.dims.index("wavelength")
+            vals = np.moveaxis(
+                np.tensordot(M, np.moveaxis(da.to_numpy(), ax, 0), axes=1),
+                0, ax,
+            )
+            out[vname] = DataArray(vals, da.dims)
 
     def _flux_types_out(self):
         """The flux types in the outputs: the configured ones where the

@@ -32,7 +32,16 @@ def ediff(a, b, delta):
 
 def ddiff2(a, b, c, delta):
     """Stable second divided difference of ``f(x) = exp(-x*delta)`` over
-    the nodes (a, b, c), with a series where all three nodes cluster."""
+    the nodes (a, b, c), with a series where all three nodes cluster.
+
+    The divisor a - c is replaced by 1 where the series is taken, as well
+    as where it is below the reference's floor of 1e-300 (the smallest
+    normal number in float32, where 1e-300 is 0): the reference keeps
+    a - c there, and where a == c exactly the branch it does not take
+    divides 0 by 0, whose gradient (multiplied by zero) is NaN. In
+    float32 that happens where an eigenvalue k equals the beam's decay
+    rate to the last bit, with a user direction at the solar zenith angle
+    (a handful of the 4,096 lanes of the o2a16 cell on an H100)."""
     a, b, c, delta = torch.broadcast_tensors(a, b, c, delta)
     fab = -ediff(a, b, delta)
     fbc = -ediff(b, c, delta)
@@ -41,7 +50,10 @@ def ddiff2(a, b, c, delta):
         torch.minimum(a, b), c
     )
     small = spread * delta < 1e-2
-    safe_ac = torch.where(ac.abs() < 1e-300, torch.ones_like(ac), ac)
+    floor = 1e-300 if ac.dtype == torch.float64 else torch.finfo(
+        ac.dtype).tiny
+    safe_ac = torch.where(small | (ac.abs() < floor), torch.ones_like(ac),
+                          ac)
     exact = (fab - fbc) / safe_ac
     mean = (a + b + c) / 3.0
     series = 0.5 * delta * delta * torch.exp(-mean * delta)

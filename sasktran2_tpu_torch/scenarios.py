@@ -80,6 +80,42 @@ reason; PERF.md section 4):
   solve (K1 at K = 16, K3 at n = 8);
 * ``polsolimb16_case``: ``num_stokes = 3``.
 
+The optical cell, ``o2a16_case``: an O2 A-band line-by-line calculation
+with a Mie aerosol, as O2 A-band cloud, aerosol-layer-height and
+surface-pressure retrievals (TROPOMI, OCO-2, GOSAT) run it. ``smoke_case``'s
+geometry, streams and sources (16 streams, DO single and multiple
+scatter, plane-parallel, 101 altitudes, four ground-viewing rays) over
+US76 + Rayleigh + Lambertian 0.3, with
+
+* O2 as ``VMRAltitudeAbsorber(LineAbsorber(o2a16_catalogue()), altitudes,
+  0.2095)``: 1,500 synthetic lines (numpy seed ``O2A16_SEED``; no line list
+  is in the repository) with nu0 uniform in 12,990-13,175 cm^-1, S
+  log-uniform in 1e-27-1e-23 cm^-1/(molec cm^-2), gamma_air 0.030-0.055,
+  gamma_self gamma_air + 0.005, n_air 0.6-0.8, delta_air -0.012 to
+  -0.005, E'' 0-2,000 cm^-1, the 25 cm^-1 cutoff and chunks of 512;
+* an ``ExtinctionScatterer`` on a Mie table (``o2a16_mie_table``: a
+  ``MieDatabase`` of a lognormal distribution, refractive index
+  1.44 + 1e-7 i, 750-780 nm every 5 nm, median radius 60-200 nm x mode
+  width 1.5-1.7, the default 1,000 radii, 481 angles and 64 moments), at
+  median radius 120 nm and mode width 1.6 on every level, its extinction
+  at 765 nm decaying with a 2 km scale height to an optical depth of 0.1.
+  The refractive index is sulfate-like. Its imaginary part is positive
+  because the Mie formulas of both packages (xi = psi - i chi) take an
+  absorbing index as n + ik: 1.44 - 1e-7 i gives an ssa above 1, which
+  both engines' input validation refuses;
+* ``SpectralGridMode.EngineIntegratedLineShape`` on the fine grid
+  ``O2A16_WAVENUMBERS`` (4,096 points, 13,000 + 0.04 k cm^-1, 759.7-769.2
+  nm) mapped onto 82 Gaussians of 6.5 cm^-1 FWHM (about 0.38 nm, TROPOMI
+  band 6) spaced 1.7 cm^-1, at least 2 FWHM inside the fine grid
+  (``o2a16_output_grid``). The grid step is about 2.5 Doppler
+  half-widths, wider than an operational line-by-line grid (about 0.01
+  cm^-1): the cut that keeps ``chip_smoke.py`` inside its limit.
+
+``o2a16_check_indices`` picks the 16 fine wavenumbers of the
+Monochromatic correctness check: the cores of the 6 strongest lines
+inside the grid, 5 points in their wings (0.2 cm^-1 off the centre) and
+the 5 grid points farthest from any line stronger than 1e-25.
+
 ``POL16_SOLVER_*`` is the solver-level case of the 16-stream polarized
 check: the JAX package cannot compile its polarized engine at 16 streams
 on the CPU, so ``tools/make_torch_golden.py`` stores the inputs and
@@ -128,6 +164,21 @@ FLUX_ALTITUDES_M = (0.0, 5000.0, 10000.0, 20000.0, 40000.0, 80000.0)
 # the pol16 solver-level case: the four rays of smoke_case, the azimuth
 # modes a Rayleigh atmosphere needs, and the golden file's wavelengths
 POL16_SOLVER_USER_MU = np.array([0.4, 0.6, 0.8, 1.0])
+# the optical cell
+GOLDEN_O2A16_PATH = os.path.join(DATA, "golden_o2a16.npz")
+O2A16_SEED = 2095
+O2A16_NUM_LINES = 1500
+O2A16_WAVENUMBERS = 13000.0 + 0.04 * np.arange(4096)
+O2A16_FWHM_CMINV = 6.5
+O2A16_SPACING_CMINV = 1.7
+O2A16_MIE_WAVELENGTHS_NM = np.arange(750.0, 780.1, 5.0)
+O2A16_MEDIAN_RADII_NM = np.array([60.0, 80.0, 100.0, 120.0, 160.0, 200.0])
+O2A16_MODE_WIDTHS = np.array([1.5, 1.6, 1.7])
+O2A16_REFRACTIVE_INDEX = 1.44 + 1e-7j
+O2A16_AEROSOL_OD = 0.1
+O2A16_SCALE_HEIGHT_M = 2000.0
+# the levels at which the golden file holds the cross sections
+O2A16_XS_LEVELS = np.linspace(0, 100, 10).round().astype(int)
 POL16_SOLVER_AZIMUTH = 0.5
 POL16_SOLVER_NUM_AZIMUTH = 3
 
@@ -440,6 +491,137 @@ def solimb16_doinit_case(sk, dtype: str, wavelengths_nm):
 def polsolimb16_case(sk, dtype: str, wavelengths_nm):
     """``solimb16_case`` polarized (I, Q, U)."""
     return solimb16_case(sk, dtype, wavelengths_nm, num_stokes=3)
+
+
+def _o2a16_lines():
+    """The line parameters of the cell's synthetic list (numpy seed
+    ``O2A16_SEED``)."""
+    rng = np.random.default_rng(O2A16_SEED)
+    n = O2A16_NUM_LINES
+    gamma_air = rng.uniform(0.030, 0.055, n)
+    return {
+        "nu0": rng.uniform(12990.0, 13175.0, n),
+        "intensity": 10.0 ** rng.uniform(-27.0, -23.0, n),
+        "gamma_air": gamma_air,
+        "gamma_self": gamma_air + 0.005,
+        "n_air": rng.uniform(0.6, 0.8, n),
+        "delta_air": rng.uniform(-0.012, -0.005, n),
+        "elower": rng.uniform(0.0, 2000.0, n),
+    }
+
+
+def o2a16_catalogue(sk):
+    """The cell's synthetic O2 A-band line list, a ``LineCatalogue`` of
+    ``sk``."""
+    return sk.optical.LineCatalogue(**_o2a16_lines(),
+                                    molar_mass=31.98983e-3)
+
+
+def o2a16_output_centers():
+    """The output basis centres [cm^-1]: every 1.7 cm^-1 from 2 FWHM above
+    the fine grid's start while 2 FWHM below its end (82 centres)."""
+    lo = O2A16_WAVENUMBERS[0] + 2.0 * O2A16_FWHM_CMINV
+    hi = O2A16_WAVENUMBERS[-1] - 2.0 * O2A16_FWHM_CMINV
+    n = int(np.floor((hi - lo) / O2A16_SPACING_CMINV + 1e-9)) + 1
+    return lo + O2A16_SPACING_CMINV * np.arange(n)
+
+
+def o2a16_output_grid(sk):
+    """The output basis: Gaussians of 6.5 cm^-1 FWHM at
+    ``o2a16_output_centers``, in wavenumber."""
+    return sk.basis.Grid.from_gaussians(o2a16_output_centers(),
+                                        O2A16_FWHM_CMINV)
+
+
+def o2a16_refractive_index(wavelength_nm):
+    """The cell's constant, sulfate-like refractive index."""
+    return O2A16_REFRACTIVE_INDEX
+
+
+def o2a16_mie_table(sk, db_root, device=None):
+    """The cell's Mie table, a ``MieDatabase`` of the port generated (on
+    ``device``, None: the GPU) into ``db_root``, or read from there when a
+    table of the same recipe is cached."""
+    return sk.database.MieDatabase(
+        sk.mie.LogNormalDistribution(),
+        sk.mie.RefractiveIndex(o2a16_refractive_index, "sulfate_like_144"),
+        O2A16_MIE_WAVELENGTHS_NM,
+        db_root=db_root,
+        median_radius=O2A16_MEDIAN_RADII_NM,
+        mode_width=O2A16_MODE_WIDTHS,
+        device=device,
+    )
+
+
+def o2a16_check_indices():
+    """The 16 indices into ``O2A16_WAVENUMBERS`` of the Monochromatic
+    check: line cores, wings and continuum."""
+    lines = _o2a16_lines()
+    nu0, s = lines["nu0"], lines["intensity"]
+    grid = O2A16_WAVENUMBERS
+    inside = (nu0 > grid[0] + 1.0) & (nu0 < grid[-1] - 1.0)
+    strongest = np.argsort(np.where(inside, s, 0.0))[::-1][:6]
+    cores = [int(np.argmin(np.abs(grid - nu0[i]))) for i in strongest]
+    wings = [int(np.argmin(np.abs(grid - nu0[i] - 0.2)))
+             for i in strongest[:5]]
+    strong = nu0[s > 1e-25]
+    dist = np.min(np.abs(grid[:, None] - strong[None, :]), axis=1)
+    taken = set(cores) | set(wings)
+    continuum = [int(i) for i in np.argsort(dist)[::-1]
+                 if int(i) not in taken]
+    picked = cores + wings
+    for i in continuum:
+        if all(abs(i - j) > 25 for j in picked):
+            picked.append(i)
+        if len(picked) == 16:
+            break
+    return np.array(sorted(picked))
+
+
+def o2a16_case(sk, dtype: str, wavenumbers_cminv, mie_table,
+               mode="EngineIntegratedLineShape", device=None):
+    """(config, geometry, viewing, atmosphere) of the optical cell on the
+    fine grid ``wavenumbers_cminv``, with the aerosol's optical property
+    ``mie_table`` (a scatterer database of ``sk``) and the spectral grid
+    mode ``mode`` (the output basis only where the mode integrates). For
+    the port, ``device`` is where the line absorber runs (None: the
+    GPU)."""
+    config = sk.Config(
+        num_streams=16,
+        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        num_singlescatter_moments=16,
+        dtype=dtype,
+        spectral_grid_mode=getattr(sk.SpectralGridMode, mode),
+    )
+    geometry = _geometry(sk, sk.GeometryType.PlaneParallel)
+    viewing = sk.ViewingGeometry()
+    for mu in (0.4, 0.6, 0.8, 1.0):
+        viewing.add_ray(sk.GroundViewingSolar(
+            cos_sza=0.6, relative_azimuth=0.5, cos_viewing_zenith=mu,
+            observer_altitude_m=200000.0,
+        ))
+    kw = {}
+    if mode != "Monochromatic":
+        kw["spectral_grid"] = o2a16_output_grid(sk)
+    atmo = sk.Atmosphere(geometry, config,
+                         wavenumbers_cminv=np.asarray(wavenumbers_cminv),
+                         **kw)
+    sk.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = sk.constituent.Rayleigh()
+    alts = geometry.altitudes()
+    port = sk.__name__.endswith("_torch")
+    atmo["o2"] = sk.constituent.VMRAltitudeAbsorber(
+        sk.optical.LineAbsorber(o2a16_catalogue(sk),
+                                **({"device": device} if port else {})),
+        alts, np.full(len(alts), 0.2095))
+    h = O2A16_SCALE_HEIGHT_M
+    atmo["aerosol"] = sk.constituent.ExtinctionScatterer(
+        mie_table, alts, O2A16_AEROSOL_OD / h * np.exp(-alts / h), 765.0,
+        param_values={"median_radius": np.full(len(alts), 120.0),
+                      "mode_width": np.full(len(alts), 1.6)})
+    atmo["surface"] = sk.constituent.LambertianSurface(0.3)
+    return config, geometry, viewing, atmo
 
 
 def golden_error(name, got, ref, stokes_axis=-1, qu_scale="own"):

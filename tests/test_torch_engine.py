@@ -10,8 +10,8 @@ The configurations the JAX package sends to its generic per-wavelength
 route (polarized thermal emission, polarized radiance with flux
 observers, a BRDF on a limb scan, polarized BRDF) take the port's generic
 route too and match at 1e-10; so do successive orders, scalar and
-polarized; EngineIntegratedLineShape and a viewing geometry
-that is not the port's raise ``NotImplementedError``; an engine with no
+polarized; EngineIntegratedLineShape runs; a viewing geometry
+that is not the port's raises ``NotImplementedError``; an engine with no
 device named needs a GPU. The JAX engine's side of each case is read from
 ``sasktran2_tpu_torch/data/golden_test_torch_engine.npz``
 (``tests/torch_support.py``)."""
@@ -153,9 +153,6 @@ class _RayList:
 
 
 @pytest.mark.parametrize(("config", "viewing", "match"), [
-    (lambda: _config(skt, spectral_grid_mode=(
-        skt.SpectralGridMode.EngineIntegratedLineShape)),
-     _ground_viewing, "EngineIntegratedLineShape.*slice 12"),
     (lambda: _config(skt),
      lambda: _RayList(_ground_viewing().observer_rays),
      "_RayList.*ViewingGeometryContainer"),
@@ -164,6 +161,27 @@ def test_out_of_slice_raises(config, viewing, match):
     geometry = _geometry(skt, "PlaneParallel")
     with pytest.raises(NotImplementedError, match=match):
         skt.Engine(config(), geometry, viewing(), device="cpu")
+
+
+def test_engine_integrated_line_shape_is_ported():
+    """EngineIntegratedLineShape, refused before the optical slice, now
+    runs: the outputs come back on the output basis
+    (``tests/test_torch_spectral_grid.py`` holds them to the JAX
+    engine)."""
+    config = _config(skt, spectral_grid_mode=(
+        skt.SpectralGridMode.EngineIntegratedLineShape))
+    geometry = _geometry(skt, "PlaneParallel")
+    engine = skt.Engine(config, geometry, _ground_viewing(), device="cpu")
+    fine = np.linspace(399.0, 401.0, 21)
+    grid = skt.basis.Grid.from_triangles([399.8, 400.2], 0.3)
+    atmo = skt.Atmosphere(geometry, config, wavelengths_nm=fine,
+                          spectral_grid=grid)
+    skt.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = skt.constituent.Rayleigh()
+    atmo["surface"] = skt.constituent.LambertianSurface(0.3)
+    out = engine.calculate_radiance(atmo)
+    assert out["radiance"].to_numpy().shape == (2, 1, 1)
+    np.testing.assert_array_equal(out.coords["wavelength"], [399.8, 400.2])
 
 
 def so_engine_case(pkg, num_stokes):

@@ -38,6 +38,7 @@ from sasktran2_tpu_torch.rt import (
     raytrace,
     singlescatter,
 )
+from tests import torch_support
 from tests.torch_support import one_torch_thread  # noqa: F401
 
 ALTITUDES = np.linspace(0.0, 100000.0, 20)
@@ -84,14 +85,19 @@ def _build(pkg, name):
 
 @pytest.fixture(scope="session")
 def reference_traces():
-    """The JAX package's traced tables of every geometry, numpy and native."""
+    """The JAX package's traced tables of every geometry, numpy and native.
+    The native ones must come from the native tracer
+    (``use_native="require"``), loaded past any concurrent build of it
+    (``torch_support.reference_native_lib``)."""
+    torch_support.reference_native_lib()
     out = {}
     for name in GEOMETRIES:
         _, geometry, rays = _build(sk, name)
         for use_native in (False, True):
             out[name, use_native] = raytrace_ref.trace_spherical(
                 geometry.altitudes(), geometry.earth_radius_m,
-                geometry.cos_sza, rays, use_native=use_native,
+                geometry.cos_sza, rays,
+                use_native="require" if use_native else False,
             )
     return out
 
@@ -102,7 +108,7 @@ def test_trace_spherical_equal(reference_traces, name, use_native):
     _, geometry, rays = _build(skt, name)
     got = raytrace.trace_spherical(
         geometry.altitudes(), geometry.earth_radius_m, geometry.cos_sza,
-        rays, use_native=use_native,
+        rays, use_native="require" if use_native else False,
     )
     ref = reference_traces[name, use_native]
     for field in dataclasses.fields(ref):

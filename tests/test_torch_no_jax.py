@@ -8,7 +8,8 @@ the vector solver and the vector limb source; scalar with flux observers;
 over a MODIS BRDF, ground-viewing only; thermal infrared with DO
 emission, an absorber and flux observers; or all of polarized, thermal,
 BRDF and flux observers, which takes the generic per-wavelength route;
-or successive orders),
+or successive orders; or EngineIntegratedLineShape over a line-by-line
+absorber and an aerosol from a Mie table generated on the CPU),
 and check that neither ``jax`` nor any ``sasktran2_tpu`` module is in
 ``sys.modules`` and that the host ray tracer was built inside
 the port. A static pass parses every module of the port, and
@@ -41,6 +42,9 @@ SCRIPT = textwrap.dedent("""
     # "generic": polarized, thermal, a BRDF, a limb ray and a flux observer,
     # the configuration of the generic per-wavelength route
     # "so": successive orders (a 4 x 4 direction grid, 4 iterations)
+    # "optical": EngineIntegratedLineShape over a line-by-line absorber
+    # and a Mie aerosol from a table generated into a temporary directory
+    optical = case == "optical"
     nstokes = 3 if case in ("polarized", "generic") else 1
     thermal = case in ("thermal", "generic")
     brdf = case in ("brdf", "generic")
@@ -57,6 +61,8 @@ SCRIPT = textwrap.dedent("""
                                if thermal else sk.SingleScatterSource.Exact),
         emission_source=(sk.EmissionSource.DiscreteOrdinates if thermal
                          else sk.EmissionSource.NoSource),
+        spectral_grid_mode=(sk.SpectralGridMode.EngineIntegratedLineShape
+                            if optical else sk.SpectralGridMode.Monochromatic),
     )
     geometry = sk.Geometry1D(
         cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
@@ -70,12 +76,44 @@ SCRIPT = textwrap.dedent("""
     if case in ("flux", "thermal", "generic"):
         viewing.add_flux_observer(sk.FluxObserverSolar(0.6, 10000.0))
     wl = [4500.0, 9000.0] if thermal else [350.0, 600.0]
-    atmo = sk.Atmosphere(geometry, config, wavelengths_nm=wl)
+    if optical:
+        wvn = 13000.0 + 0.2 * np.arange(20)
+        atmo = sk.Atmosphere(
+            geometry, config, wavenumbers_cminv=wvn,
+            spectral_grid=sk.basis.Grid.from_triangles([13001.5, 13002.5],
+                                                       0.6))
+    else:
+        atmo = sk.Atmosphere(geometry, config, wavelengths_nm=wl)
     sk.climatology.us76.add_us76_standard_atmosphere(atmo)
     atmo["rayleigh"] = sk.constituent.Rayleigh()
     atmo["surface"] = sk.constituent.LambertianSurface(0.3)
     if brdf:
         atmo["surface"] = sk.constituent.MODIS(0.25, 0.15, 0.05)
+    if optical:
+        import tempfile
+        cat = sk.optical.LineCatalogue(
+            nu0=np.array([13001.0, 13002.7]),
+            intensity=np.array([1e-24, 5e-25]),
+            gamma_air=np.array([0.04, 0.05]),
+            gamma_self=np.array([0.045, 0.055]),
+            n_air=np.array([0.7, 0.7]), delta_air=np.array([-0.01, -0.01]),
+            elower=np.array([10.0, 100.0]), molar_mass=31.98983e-3)
+        atmo["o2"] = sk.constituent.VMRAltitudeAbsorber(
+            sk.optical.LineAbsorber(cat, device="cpu"),
+            [0.0, 100000.0], [0.2095, 0.2095])
+        with tempfile.TemporaryDirectory() as root:
+            table = sk.database.MieDatabase(
+                sk.mie.LogNormalDistribution(),
+                sk.mie.RefractiveIndex(lambda w: 1.44 + 1e-7j, "sulfate"),
+                [760.0, 775.0], db_root=root, max_legendre_moments=8,
+                num_size_quadrature=32, num_angles=31,
+                median_radius=[100.0, 140.0], mode_width=[1.5, 1.7],
+                device="cpu")
+            atmo["aerosol"] = sk.constituent.ExtinctionScatterer(
+                table, [0.0, 100000.0], [1e-5, 1e-9], 765.0,
+                param_values={"median_radius": [120.0, 120.0],
+                              "mode_width": [1.6, 1.6]})
+            atmo.internal_object()
     if thermal:
         atmo["absorber"] = sk.constituent.VMRAltitudeAbsorber(
             sk.optical.TabulatedCrossSectionAbsorber(
@@ -110,7 +148,7 @@ SCRIPT = textwrap.dedent("""
 
 
 @pytest.mark.parametrize("case", ["scalar", "polarized", "flux", "brdf",
-                                  "thermal", "generic", "so"])
+                                  "thermal", "generic", "so", "optical"])
 def test_port_never_imports_jax(case):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -19,14 +19,18 @@ values their closures hold), and a test whose inputs no longer match
 its recorded digest fails, naming the command that records it anew.
 
 It also holds ``one_torch_thread``, the fixture that runs a port test
-module's torch ops on one thread.
+module's torch ops on one thread, and ``reference_native_lib``, which
+loads the JAX package's native ray tracer past a concurrent build.
 """
 
 import enum
+import fcntl
 import functools
 import hashlib
 import json
 import os
+import tempfile
+import time
 import types
 
 import numpy as np
@@ -340,3 +344,39 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def reference_native_lib(timeout_s=120.0):
+    """The JAX package's native ray tracer, loaded for certain.
+
+    The JAX package compiles ``raytracer.cpp`` straight into its
+    ``_sk_native.so`` (``g++ -o``), with no lock between processes and no
+    rename. In a fresh checkout several xdist workers build it at once,
+    and a worker that starts while another is writing the file finds it
+    present but short ("file too short" from ``dlopen``): it caches the
+    failure and traces with numpy from then on. This takes an
+    inter-process lock (so the port's test workers build it one at a
+    time), and while the library does not load, forgets the cached
+    failure and tries again, until a concurrent build by any other
+    process has finished. Raises ``RuntimeError`` if it never loads."""
+    from sasktran2_tpu import native
+
+    lock_path = os.path.join(tempfile.gettempdir(),
+                             "sasktran2_tpu_native_build.lock")
+    deadline = time.monotonic() + timeout_s
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            while True:
+                lib = native.get_native_lib()
+                if lib is not None:
+                    return lib
+                if time.monotonic() > deadline:
+                    msg = ("the JAX package's native ray tracer did not "
+                           f"load within {timeout_s:g} s")
+                    raise RuntimeError(msg)
+                time.sleep(0.5)
+                with native._LOCK:
+                    native._TRIED = False
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)

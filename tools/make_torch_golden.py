@@ -18,7 +18,7 @@ independent in this model, so 8 wavelengths taken from a case's
 1024-point grid give the same values as the full grid. Runs the JAX
 engine on the CPU in float64:
 
-    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|polsolimb16|pol16_solver|tests|all] [--tests MODULE,...]
+    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|polsolimb16|pol16_solver|o2a16|tests|all] [--tests MODULE,...]
 
 and writes ``sasktran2_tpu_torch/data/golden_<case>.npz`` with the
 wavelength indices, the wavelengths, ``radiance``, the ``*_flux``
@@ -32,6 +32,11 @@ on them at the case's four rays (``golden_pol16_solver.npz``). It holds
 no gradients: the JAX gradient graph of the 16-stream vector solver did
 not finish compiling on the CPU in 20 minutes (13 GB resident), where the
 forward graph compiles in about a minute.
+
+``o2a16`` is the optical cell (``o2a16_case``): its Mie table, its line
+cross sections at 10 of the 101 levels and one Monochromatic engine call
+at 16 fine wavenumbers (``o2a16_golden``; about 15 minutes, 7 of them the
+table).
 
 ``tests`` runs the port's CPU test modules of ``TEST_MODULES`` (or those
 given by ``--tests``) in record mode (``tests/torch_support.py``): each
@@ -100,7 +105,7 @@ def main():
                         scenarios.GOLDEN_POLSOLIMB16_PATH),
     }
     parser.add_argument("--case",
-                        choices=[*cases, *so_cases, "pol16_solver",
+                        choices=[*cases, *so_cases, "pol16_solver", "o2a16",
                                  "tests", "all"],
                         default="all")
     parser.add_argument("--tests", default=None,
@@ -150,6 +155,8 @@ def main():
     if args.case in ("pol16_solver", "all"):
         save(scenarios.GOLDEN_POL16_SOLVER_PATH,
              pol16_solver(sk, solar()[idx], idx))
+    if args.case in ("o2a16", "all"):
+        save(scenarios.GOLDEN_O2A16_PATH, o2a16_golden(sk))
     if args.case in ("tests", "all"):
         t0 = time.perf_counter()
         record_test_goldens(args.tests.split(",") if args.tests else None)
@@ -248,6 +255,196 @@ def pol16_solver(sk, wl, idx):
     return arrays
 
 
+def jax_mie_table(sk):
+    """The o2a16 cell's Mie table from the JAX package in float64, in the
+    layout of ``MieDatabase.generate``: ``_integration_grid``, the ensemble
+    sums of ``integrate_mie`` and ``compute_greek_coefficients`` as the
+    JAX package has them, with the Mie efficiencies and amplitudes of
+    each radius from ``optical.mie`` at that radius's own nmax. The JAX
+    package's ``integrate_mie`` takes one nmax for all 1,000 radii of a
+    call, and its psi recurrence then gives NaN at the smallest radii of
+    the larger distributions (it raises for a median radius of 200 nm and
+    a mode width of 1.7): here every radius of the table is computed in
+    one call with the radii of the same nmax. Returns the arrays, and per
+    grid point the NaN members of the JAX package's own batch at 750 nm
+    (its ``mie_efficiencies`` on the 1,000 radii)."""
+    import itertools
+
+    import jax.numpy as jnp
+    from sasktran2_tpu.legendre import compute_greek_coefficients
+    from sasktran2_tpu.mie import distribution as dist_ref
+    from sasktran2_tpu.optical import mie as mie_ref
+    from sasktran2_tpu_torch import scenarios as sc
+
+    wl = sc.O2A16_MIE_WAVELENGTHS_NM
+    grids = [sc.O2A16_MEDIAN_RADII_NM, sc.O2A16_MODE_WIDTHS]
+    m = sc.O2A16_REFRACTIVE_INDEX
+    num_angles, num_quad, L = 481, 1000, 64
+    angles = np.linspace(0.0, 180.0, num_angles)
+    mu = jnp.asarray(np.cos(np.deg2rad(angles)))
+    points = list(itertools.product(*grids))
+    members, nan_750 = [], []
+    for pi, (rg, width) in enumerate(points):
+        dist = sk.mie.LogNormalDistribution().distribution(
+            median_radius=rg, mode_width=width)
+        r, w = dist_ref._integration_grid(dist, num_quad, 0.999999)
+        wpdf, area = w * dist.pdf(r), np.pi * r**2
+        for wi, lam in enumerate(wl):
+            members.append((pi, wi, 2.0 * np.pi * r / lam, wpdf, area))
+        q750 = np.asarray(mie_ref.mie_efficiencies(
+            jnp.asarray(2.0 * np.pi * r / wl[0]), m)[0])
+        nan_750.append(int(np.sum(~np.isfinite(q750))))
+    x_all = np.concatenate([mb[2] for mb in members])
+    own = np.array([mie_ref._nmax_for(float(v)) for v in x_all])
+    qext = np.zeros(x_all.size)
+    qsca = np.zeros(x_all.size)
+    s1_all = np.zeros((x_all.size, num_angles), dtype=np.complex128)
+    s2_all = np.zeros((x_all.size, num_angles), dtype=np.complex128)
+    t0 = time.perf_counter()
+    for nmax in np.unique(own):
+        sel = np.nonzero(own == nmax)[0]
+        xs = jnp.asarray(x_all[sel])
+        qe, qs = mie_ref.mie_efficiencies(xs, m)
+        s1, s2 = mie_ref.mie_amplitudes(xs, m, mu)
+        qext[sel], qsca[sel] = np.asarray(qe), np.asarray(qs)
+        s1_all[sel], s2_all[sel] = np.asarray(s1), np.asarray(s2)
+    print(f"o2a16: JAX Mie of {x_all.size} radii in {len(np.unique(own))} "
+          f"calls by nmax: {time.perf_counter() - t0:.1f} s", flush=True)
+    shape = tuple(g.size for g in grids)
+    W = wl.size
+    xs_total = np.zeros(shape + (W,))
+    xs_scattering = np.zeros(shape + (W,))
+    lm = {k: np.zeros((L,) + shape + (W,))
+          for k in ("lm_a1", "lm_a2", "lm_a3", "lm_a4", "lm_b1", "lm_b2")}
+    phase = {k: np.zeros((len(points), W, num_angles))
+             for k in ("p11", "p12", "p33", "p34")}
+    start = 0
+    for pi, wi, x, wpdf, area in members:
+        # the ensemble sums of ``integrate_mie`` (mie/distribution.py),
+        # in its order
+        sl = slice(start, start + x.size)
+        start += x.size
+        s1, s2 = s1_all[sl], s2_all[sl]
+        cext = float(np.dot(wpdf, qext[sl] * area))
+        csca = float(np.dot(wpdf, qsca[sl] * area))
+        idx = np.unravel_index(pi, shape)
+        xs_total[idx + (wi,)] = cext * 1e-18
+        xs_scattering[idx + (wi,)] = csca * 1e-18
+        p11 = np.einsum("b,bt->t", wpdf, np.abs(s1) ** 2 + np.abs(s2) ** 2)
+        p12 = np.einsum("b,bt->t", wpdf, np.abs(s1) ** 2 - np.abs(s2) ** 2)
+        cross = s1 * np.conj(s2)
+        p33 = np.einsum("b,bt->t", wpdf, 2.0 * np.real(cross))
+        p34 = np.einsum("b,bt->t", wpdf, 2.0 * np.imag(cross))
+        k = 2.0 * np.pi / wl[wi]
+        c = 4.0 * np.pi / (2.0 * k**2 * csca)
+        for name, v in (("p11", p11), ("p12", p12), ("p33", p33),
+                        ("p34", p34)):
+            phase[name][pi, wi] = v * c
+    del s1_all, s2_all
+    for pi in range(len(points)):
+        a1, a2, a3, a4, b1, b2 = compute_greek_coefficients(
+            p11=phase["p11"][pi], p12=phase["p12"][pi],
+            p22=phase["p11"][pi], p33=phase["p33"][pi],
+            p34=phase["p34"][pi], p44=phase["p33"][pi],
+            angle_grid=angles, num_coeff=L)
+        idx = np.unravel_index(pi, shape)
+        for name, v in zip(lm, (a1, a2, a3, a4, b1, b2)):
+            lm[name][(slice(None), *idx)] = v.T
+    names = ("median_radius", "mode_width", "wavelength_nm")
+    arrays = {"coord_wavelength_nm": wl, "coord_legendre": np.arange(L),
+              "coord_median_radius": grids[0], "coord_mode_width": grids[1],
+              "xs_total": xs_total, "dims_xs_total": np.array(names),
+              "xs_scattering": xs_scattering,
+              "dims_xs_scattering": np.array(names)}
+    for name, v in lm.items():
+        arrays[name] = v
+        arrays[f"dims_{name}"] = np.array(("legendre",) + names)
+    return arrays, np.array(nan_750)
+
+
+def o2a16_golden(sk):
+    """The o2a16 cell's golden values, in float64 from the JAX package:
+    the Mie table (``jax_mie_table``), the line cross sections at the
+    ``O2A16_XS_LEVELS`` of the 101 levels on the whole fine grid, and one
+    Monochromatic engine call at the 16 wavenumbers of
+    ``o2a16_check_indices`` (radiance and every ``wf_*``), with the JAX
+    engine's own float32 error beside it (``jax_f32_err_<name>``), the
+    difference between its fast path and its generic route in float64
+    (``jax_route_err_<name>``, by ``golden_error``) and its route for the
+    cell."""
+    import tempfile
+
+    import jax
+
+    from sasktran2_tpu_torch import scenarios as sc
+
+    jax.config.update("jax_enable_x64", True)
+    t0 = time.perf_counter()
+    table, nan_750 = jax_mie_table(sk)
+    print(f"o2a16: Mie table {time.perf_counter() - t0:.1f} s; the JAX "
+          f"package's own batch at 750 nm has NaN members per grid point "
+          f"{nan_750.tolist()}", flush=True)
+    out = {f"table_{k}": v for k, v in table.items()}
+    out["jax_batch_nan_members_750nm"] = nan_750
+    wvn = sc.O2A16_WAVENUMBERS
+    idx = sc.o2a16_check_indices()
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "o2a16_mie.npz")
+        np.savez_compressed(path, **table)
+        optical = sk.optical.OpticalDatabaseGenericScatterer(db_filepath=path)
+        config, geometry, viewing, atmo = sc.o2a16_case(
+            sk, "float64", wvn[idx], optical, mode="Monochromatic")
+        atmo.internal_object()
+        levels = sc.O2A16_XS_LEVELS
+        p, t = atmo.pressure_pa[levels], atmo.temperature_k[levels]
+        t0 = time.perf_counter()
+        xs = sk.optical.LineAbsorber(sc.o2a16_catalogue(sk))\
+            .cross_section_grid(wvn, p, t)
+        print(f"o2a16: JAX cross sections at {len(levels)} levels x "
+              f"{wvn.size}: {time.perf_counter() - t0:.1f} s", flush=True)
+        out.update({"xs_levels": levels, "xs_pressure_pa": p,
+                    "xs_temperature_k": t, "xs": xs})
+        runs = {}
+        for dtype in ("float32", "float64"):
+            jax.config.update("jax_enable_x64", dtype == "float64")
+            config, geometry, viewing, atmo = sc.o2a16_case(
+                sk, dtype, wvn[idx], optical, mode="Monochromatic")
+            t0 = time.perf_counter()
+            res = sk.Engine(config, geometry, viewing)\
+                .calculate_radiance(atmo)
+            print(f"o2a16: JAX {dtype} Monochromatic engine call on the CPU "
+                  f"(compile included): {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            runs[dtype] = {k: res[k].to_numpy() for k in res.keys()
+                           if k == "radiance" or k.startswith("wf_")}
+        # the JAX package's own generic route (gates forced off) on the
+        # same case in f64: how far its two routes agree, per variable
+        config, geometry, viewing, atmo = sc.o2a16_case(
+            sk, "float64", wvn[idx], optical, mode="Monochromatic")
+        engine = sk.Engine(config, geometry, viewing)
+        engine._twostream_fast_ok = lambda: False
+        t0 = time.perf_counter()
+        res = engine.calculate_radiance(atmo)
+        print(f"o2a16: JAX float64 Monochromatic engine call on the CPU, "
+              f"generic route forced (compile included): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for key, ref in runs["float64"].items():
+            out[f"jax_route_err_{key}"] = sc.golden_error(
+                key, res[key].to_numpy(), ref)
+        jax.config.update("jax_enable_x64", True)
+        config, geometry, viewing, _ = sc.o2a16_case(
+            sk, "float32", wvn[:2], optical)
+        engine = sk.Engine(config, geometry, viewing)
+        out["twostream_fast_ok"] = np.array(engine._twostream_fast_ok())
+        out["polarized_fast_ok"] = np.array(engine._polarized_fast_ok())
+    out.update({"indices": idx, "wavenumbers_cminv": wvn[idx],
+                **runs["float64"]})
+    for key, ref in runs["float64"].items():
+        out[f"jax_f32_err_{key}"] = sc.golden_error(
+            key, runs["float32"][key], ref)
+    return out
+
+
 def record_test_goldens(modules=None):
     """Run the port's CPU tests in record mode (``tests/torch_support.py``):
     every ``jax_reference`` computes its JAX side, and each test module's
@@ -278,10 +475,14 @@ TEST_MODULES = (
     "test_torch_generic",
     "test_torch_kernels",
     "test_torch_limb",
+    "test_torch_lineshape",
+    "test_torch_mie",
     "test_torch_nstream",
     "test_torch_polarized",
     "test_torch_polarized_engine",
+    "test_torch_scatterer",
     "test_torch_singlescatter",
+    "test_torch_spectral_grid",
     "test_torch_successive",
     "test_torch_successive_engine",
     "test_torch_thermal",

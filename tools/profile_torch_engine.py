@@ -3,7 +3,7 @@
     python tools/profile_torch_engine.py
         [--case ground|limb|2str|flux16|pol4|pol16|limbpol16|generic16|
                 polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|
-                polsolimb16]
+                polsolimb16|o2a16]
         [--trace engine_trace.json] [--tree PATH] [--time N]
 
 Builds the case of ``sasktran2_tpu_torch.scenarios`` (``ground``: the
@@ -15,8 +15,10 @@ cases of the same names; the generic per-wavelength route's cells:
 by ``lambda: False``, and ``polbrdf4``, ``polflux4``,
 ``polthermallimb4``, the last on the thermal cases' 4,000-15,000 nm grid;
 the successive-orders cells ``solimb16``, ``solimb16_doinit`` and
-``polsolimb16`` on their 64-wavelength grid) at W = 1024 in float32 on
-``cuda:0``, warms up,
+``polsolimb16`` on their 64-wavelength grid; the optical cell ``o2a16``
+on its 4,096 fine wavenumbers, EngineIntegratedLineShape, with its Mie
+table generated on the card into a temporary directory first) at
+W = 1024 in float32 on ``cuda:0``, warms up,
 then profiles one ``calculate_radiance`` call with Jacobians and one
 without under ``torch.profiler``. For each it prints the wall time, the
 device time summed over kernels and copies, the device busy share (device
@@ -148,7 +150,7 @@ def main():
         "polbrdf4": "polbrdf4_case", "polflux4": "polflux4_case",
         "polthermallimb4": "polthermallimb4_case",
         "solimb16": "solimb16_case", "solimb16_doinit": "solimb16_doinit_case",
-        "polsolimb16": "polsolimb16_case",
+        "polsolimb16": "polsolimb16_case", "o2a16": "o2a16_case",
     }
     parser.add_argument("--case", choices=list(cases), default="ground")
     parser.add_argument("--trace", default=None,
@@ -178,7 +180,16 @@ def main():
             "solimb16_doinit": scenarios.so_wavelengths,
             "polsolimb16": scenarios.so_wavelengths}.get(
         args.case, scenarios.smoke_wavelengths)
-    config, geometry, viewing, atmo = build(sk, "float32", grid())
+    if args.case == "o2a16":
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as root:
+            table = scenarios.o2a16_mie_table(sk, root, device="cuda:0")
+        config, geometry, viewing, atmo = build(
+            sk, "float32", scenarios.O2A16_WAVENUMBERS, table,
+            device="cuda:0")
+    else:
+        config, geometry, viewing, atmo = build(sk, "float32", grid())
     engine = sk.Engine(config, geometry, viewing, device="cuda:0")
     if args.case == "generic16":
         engine._twostream_fast_ok = lambda: False
