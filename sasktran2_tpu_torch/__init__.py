@@ -24,30 +24,42 @@ from .config import (
     GeometryType,
     InputValidationMode,
     InterpolationMethod,
+    LogLevel,
     MultipleScatterSource,
     OccultationSource,
     SingleScatterSource,
     SpectralGridMode,
     StokesBasis,
+    ThreadingLib,
+    ThreadingModel,
+    TwoStreamBackend,
 )
 from .dataset import DataArray, Dataset
+from .geodetic import Geodetic
 from .geometry import Geometry1D
 from .viewinggeo import (
     FluxObserverSolar,
     GroundViewingSolar,
+    LimbVertical,
     SolarAnglesObserverLocation,
     TangentAltitudeSolar,
     ViewingGeometry,
+    ViewingGeometryContainer,
 )
 
 from . import (
     basis,
     climatology,
+    constants,
     constituent,
     database,
     legendre,
     mie,
     optical,
+    photchem,
+    solar,
+    spectroscopy,
+    units,
 )
 from .engine import Engine
 
@@ -60,11 +72,14 @@ __all__ = [
     "Engine",
     "FluxObserverSolar",
     "FluxType",
+    "Geodetic",
     "Geometry1D",
     "GeometryType",
     "GroundViewingSolar",
     "InputValidationMode",
     "InterpolationMethod",
+    "LimbVertical",
+    "LogLevel",
     "MultipleScatterSource",
     "OccultationSource",
     "SingleScatterSource",
@@ -72,12 +87,21 @@ __all__ = [
     "SpectralGridMode",
     "StokesBasis",
     "TangentAltitudeSolar",
+    "ThreadingLib",
+    "ThreadingModel",
+    "TwoStreamBackend",
     "ViewingGeometry",
+    "ViewingGeometryContainer",
     "basis",
     "climatology",
+    "constants",
     "constituent",
     "database",
     "legendre",
     "mie",
     "optical",
+    "photchem",
+    "solar",
+    "spectroscopy",
+    "units",
 ]

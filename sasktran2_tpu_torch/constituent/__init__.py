@@ -4,10 +4,18 @@ building an atmosphere never loads jax."""
 from .base import Constituent
 from .brdf import MODIS, LambertianSurface, SnowKokhanovsky, WeightedBRDF
 from .emission import (
+    LineListVolumeEmissionRate,
+    PopulationEmissionRate,
     SurfaceThermalEmission,
     ThermalEmission,
     VolumeEmissionRate,
     planck_blackbody_radiance,
+)
+from .misc import (
+    AirMassFactor,
+    CollisionInducedAbsorber,
+    ManualOpticalProperties,
+    SolarIrradiance,
 )
 from .rayleigh import Rayleigh
 from .scatterer import (
@@ -21,23 +29,31 @@ from .scatterer import (
 )
 from .vmr_absorber import VMRAltitudeAbsorber
 
-# the reference's name for it
+# the reference's names for them
+Manual = ManualOpticalProperties
 MonochromaticVolumeEmissionRate = VolumeEmissionRate
 
 __all__ = [
     "MODIS",
+    "AirMassFactor",
+    "CollisionInducedAbsorber",
     "Constituent",
     "ExtinctionScatterer",
     "ExtinctionScatterer2D",
     "GaussianHeightExtinction",
     "HGScatteringOptical",
     "LambertianSurface",
+    "LineListVolumeEmissionRate",
+    "Manual",
+    "ManualOpticalProperties",
     "MieScatteringOptical",
     "MonochromaticVolumeEmissionRate",
     "NumberDensityScatterer",
     "NumberDensityScatterer2D",
+    "PopulationEmissionRate",
     "Rayleigh",
     "SnowKokhanovsky",
+    "SolarIrradiance",
     "SurfaceThermalEmission",
     "ThermalEmission",
     "VMRAltitudeAbsorber",

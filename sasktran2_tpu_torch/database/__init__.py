@@ -3,8 +3,9 @@
 Counterpart of ``sasktran2_tpu/database/__init__.py``: the local cache
 directory (``database_root``, under the port's own root, see
 ``appconfig``) and ``CachedDatabase``. ``MieDatabase`` generates its
-tables on the device. The JAX package's download helpers
-(``database/web.py``) and its HITRAN line database are not ported.
+tables on the device; ``HITRANLineDatabase`` reads local line files. The
+JAX package's download helpers (``database/web.py``) are not ported: the
+port reads only local files.
 """
 
 from __future__ import annotations
@@ -42,26 +43,29 @@ class CachedDatabase:
             shutil.rmtree(self._path)
 
 
-_NOT_PORTED = {
-    "HITRANLineDatabase": "database/hitran_line.py",
-    "WebDatabase": "database/web.py",
-    "ZipWebDatabase": "database/web.py",
-    "StandardDatabase": "database/web.py",
-    "download_zenodo_record": "database/web.py",
-}
+# database/web.py's names: they download
+_DOWNLOADS = (
+    "WebDatabase", "ZipWebDatabase", "StandardDatabase",
+    "download_zenodo_record",
+)
 
 
 def __getattr__(name):
-    # lazy: database.mie imports the optical layer, which imports this
-    # package
+    # lazy: database.mie and database.hitran_line import the optical
+    # layer, which imports this package
     if name == "MieDatabase":
         from .mie import MieDatabase
 
         return MieDatabase
-    if name in _NOT_PORTED:
+    if name == "HITRANLineDatabase":
+        from .hitran_line import HITRANLineDatabase
+
+        return HITRANLineDatabase
+    if name in _DOWNLOADS:
         msg = (
-            f"{name} ({_NOT_PORTED[name]}) is not ported to the PyTorch "
-            "package (ROADMAP Queue 1 item 2; nothing is downloaded)"
+            f"{name} (database/web.py) is not ported to the PyTorch "
+            "package: it downloads, and the port reads only local files "
+            "(ROADMAP Queue 1, not ported by design)"
         )
         raise NotImplementedError(msg)
     msg = f"module 'sasktran2_tpu_torch.database' has no attribute {name!r}"

@@ -34,14 +34,16 @@ scattering (``rt/successive.py``: scalar, DO-initialised, on a grid of
 solar zenith angles, with refracted internal rays, and polarized), which
 takes the generic route as in the JAX engine; every spectral grid mode,
 EngineIntegratedLineShape (the outputs mapped onto the output basis)
-included. 2D geometry, ``mesh=`` and viewing-geometry containers raise
-``NotImplementedError`` naming their ROADMAP slice.
+included; viewing-geometry containers (``LimbVertical``), whose per-ray
+metadata joins the output. 2D geometry and ``mesh=`` raise
+``NotImplementedError`` naming their ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -75,6 +77,7 @@ from .viewinggeo import (
     SolarAnglesObserverLocation,
     TangentAltitudeSolar,
     ViewingGeometry,
+    ViewingGeometryContainer,
 )
 
 
@@ -83,13 +86,25 @@ def _not_ported(what: str, slice_: str):
     return NotImplementedError(msg)
 
 
+# a box AMF combines a level's extinction and single-scatter-albedo
+# gradients, the latter scaled by 1 / extinction; in float32 the JAX
+# package's own AMF on ``scenarios.amf16_case`` is 4.6 of the column's
+# largest magnitude off its float64 one, 0.11 below 60 km
+_F32_AMF_WARNING = (
+    "box air-mass factors (constituent.AirMassFactor) are ill-conditioned "
+    "in float32; use Config(dtype='float64') for them (ROADMAP Queue 3)"
+)
+
+
 class Engine:
     """``Engine(config, geometry, viewing_geometry, device=None)``.
 
     ``device`` is where the solve runs: ``None`` means ``"cuda"``, and
     raises ``RuntimeError`` where no GPU is available rather than running
     on the CPU; pass ``device="cpu"`` for the CPU. On the CPU the port
-    computes in float64; on CUDA in ``config.dtype``.
+    computes in float64; on CUDA in ``config.dtype``. A float32 call that
+    asks for box air-mass factors warns: in float32 they are
+    ill-conditioned, in this port as in the JAX package (ROADMAP Queue 3).
     """
 
     def __init__(
@@ -183,22 +198,23 @@ class Engine:
 
     def _check_slice(self):
         """Raise for every configuration outside the ported slices; the
-        message names the ROADMAP Queue 1 slice for it."""
-        cfg = self._config
+        message names its ROADMAP Queue 1 item."""
         if not isinstance(self._geometry, Geometry1D):
             msg = (
                 "geometry must be a sasktran2_tpu_torch.Geometry1D, got "
                 f"{type(self._geometry).__module__}."
                 f"{type(self._geometry).__name__} (Geometry2D is ROADMAP "
-                "Queue 1 slice 11, 2D)"
+                "Queue 1 item 8)"
             )
             raise TypeError(msg)
         if not isinstance(self._viewing, ViewingGeometry):
-            raise _not_ported(
-                f"viewing geometry {type(self._viewing).__name__} (the port "
-                "takes sasktran2_tpu_torch.ViewingGeometry)",
-                "ROADMAP, Next: ViewingGeometryContainer",
+            msg = (
+                "viewing geometry must be a sasktran2_tpu_torch."
+                "ViewingGeometry (a container such as LimbVertical is one), "
+                f"got {type(self._viewing).__module__}."
+                f"{type(self._viewing).__name__}"
             )
+            raise TypeError(msg)
         for ray in self._rays:
             if not isinstance(ray, (
                 GroundViewingSolar, SolarAnglesObserverLocation,
@@ -206,7 +222,7 @@ class Engine:
             )):
                 raise _not_ported(
                     f"ray type {type(ray).__name__}",
-                    "ROADMAP, Next: ViewingGeometryContainer",
+                    "ROADMAP Queue 1 item 8, 2D geometry",
                 )
 
     def _twostream_fast_ok(self):
@@ -1118,7 +1134,7 @@ class Engine:
         at every wavelength at once. Outputs and every gradient block come
         back to the host in one copy."""
         if mesh is not None:
-            raise _not_ported("mesh=", "ROADMAP Queue 1 slice 13, multi-GPU")
+            raise _not_ported("mesh=", "ROADMAP Queue 1 item 9, multi-GPU")
         if not isinstance(atmosphere, Atmosphere):
             msg = (
                 "atmosphere must be a sasktran2_tpu_torch.Atmosphere; "
@@ -1157,6 +1173,10 @@ class Engine:
             if self._brdf is not None:
                 wrt.append("brdf_args")
 
+        if needs_jac and self._dtype == torch.float32 and any(
+            m.log_radiance_space for m in mappings.values()
+        ):
+            warnings.warn(_F32_AMF_WARNING, stacklevel=2)
         core = core_from_reference(core_np, self._device, self._dtype)
         for k in wrt:
             core[k].requires_grad_(True)
@@ -1215,6 +1235,9 @@ class Engine:
             )
         if getattr(atmosphere, "_engine_lineshape", False):
             self._map_to_output_basis(out, atmosphere._spectral_reduce)
+        if isinstance(self._viewing, ViewingGeometryContainer):
+            # per-ray geometry metadata (sasktran2_tpu/engine.py:1861-1865)
+            out = self._viewing.add_geometry_to_radiance(out)
         return out
 
     @staticmethod

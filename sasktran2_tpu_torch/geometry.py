@@ -6,8 +6,7 @@ on TPU all geometry is *static* host-side precompute that parameterizes the
 jit-compiled radiative transfer pipeline.
 
 (Copy of ``sasktran2_tpu/geometry.py`` for the PyTorch port: ``Geometry1D``
-only. The Ellipsoidal osculating-sphere radius and ``Geometry2D`` are not
-ported yet; see ROADMAP.)
+only. ``Geometry2D`` is ROADMAP Queue 1 item 8.)
 """
 
 from __future__ import annotations
@@ -32,9 +31,12 @@ class Geometry1D:
         reference_latitude_deg: float | None = None,
         reference_longitude_deg: float = 0.0,
     ):
-        """``GeometryType.Ellipsoidal`` with a ``reference_latitude_deg``
-        (the WGS84 osculating-sphere radius) raises ``NotImplementedError``;
-        without one it traces as spherical, as in the JAX package."""
+        """``GeometryType.Ellipsoidal`` traces on the osculating sphere at
+        the reference point: when ``reference_latitude_deg`` is given, the
+        supplied ``earth_radius_m`` is replaced by the WGS84 osculating-
+        spheroid radius there (reference ``geodetic.cpp:283`` —
+        the reference core otherwise treats the ellipsoidal enum
+        identically to spherical in its ray tracers)."""
         altitude_grid_m = np.ascontiguousarray(altitude_grid_m, dtype=np.float64)
         if altitude_grid_m.ndim != 1 or len(altitude_grid_m) < 2:
             msg = "altitude_grid_m must be a 1D array with at least 2 entries"
@@ -50,12 +52,12 @@ class Geometry1D:
             geometry_type == GeometryType.Ellipsoidal
             and reference_latitude_deg is not None
         ):
-            msg = (
-                "GeometryType.Ellipsoidal with a reference latitude is not "
-                "ported to the PyTorch engine yet (ROADMAP, Next: "
-                "Ellipsoidal geometry)"
+            from .geodetic import Geodetic
+
+            g = Geodetic().from_lat_lon_alt(
+                reference_latitude_deg, reference_longitude_deg, 0.0
             )
-            raise NotImplementedError(msg)
+            earth_radius_m, _ = g.osculating_spheroid()
 
         self.cos_sza = float(cos_sza)
         self.solar_azimuth = float(solar_azimuth)

@@ -1,9 +1,11 @@
 """Optical-property models of the port: numpy copies of the JAX package's
-host models (Rayleigh, tabulated and database cross sections,
-Henyey-Greenstein), and the line-by-line absorber and the Mie solution,
+host models (Rayleigh, tabulated, named and database cross sections, the
+Baum ice crystals, Henyey-Greenstein, the Ciddor refractive index), and
+the line-by-line absorber and the Mie solution,
 which run on the device."""
 
 from .base import OpticalProperty
+from .baum import BaumIceCrystal
 from .database import (
     AbsorberDatabase,
     OpticalDatabaseGenericAbsorber,
@@ -20,16 +22,33 @@ from .line_absorber import (
 )
 from .lineshape import voigt_profile, voigt_profile_complex, wofz
 from .mie import MieOutput, compute_mie, mie_amplitudes, mie_efficiencies
+from .named import (
+    HITRANUV,
+    HITRANCollision,
+    HITRANTabulated,
+    NO2Vandaele,
+    O3BirkWagner,
+    O3DBM,
+    O3Serdyuchenko,
+)
 from .rayleigh import rayleigh_cross_section_bates
 from .tabulated import TabulatedCrossSectionAbsorber
 
 __all__ = [
     "AERLineAbsorber",
     "AbsorberDatabase",
+    "BaumIceCrystal",
+    "HITRANCollision",
+    "HITRANTabulated",
+    "HITRANUV",
     "HenyeyGreenstein",
     "LineAbsorber",
     "LineCatalogue",
     "MieOutput",
+    "NO2Vandaele",
+    "O3BirkWagner",
+    "O3DBM",
+    "O3Serdyuchenko",
     "OpticalDatabaseGenericAbsorber",
     "OpticalDatabaseGenericScatterer",
     "OpticalProperty",
@@ -45,3 +64,5 @@ __all__ = [
     "voigt_profile_complex",
     "wofz",
 ]
+
+from . import refraction  # noqa: E402  (submodule: sk.optical.refraction)

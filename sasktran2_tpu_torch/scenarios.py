@@ -116,6 +116,43 @@ Monochromatic correctness check: the cores of the 6 strongest lines
 inside the grid, 5 points in their wings (0.2 cm^-1 off the centre) and
 the 5 grid points farthest from any line stronger than 1e-25.
 
+The host-side slice's cells:
+
+* ``dayglowlimb16_case``: an O2 A-band dayglow limb scan, as OSIRIS and
+  SCIAMACHY O2 A-band dayglow VER and temperature retrievals run it. The
+  rays come from a ``LimbVertical`` container
+  (``LimbVertical.from_tangent_parameters`` with a forced sun at solar
+  zenith 60 and azimuth 30 degrees; ``DAYGLOW_TANGENTS_M``, 21 tangent
+  altitudes 60-100 km every 2 km; the tangent point at 20 N 40 E, the
+  observer at 600 km, viewing azimuth 90 degrees, reference altitude
+  80 km), and the model geometry from ``container.model_geometry`` on
+  0-100 km every 1 km (spherical). 16 streams, exact single scatter, DO
+  multiple scatter on ``limb_case``'s 2-point SZA grid, VER emission,
+  Monochromatic, on ``DAYGLOW_WAVENUMBERS`` (4,096 points 0.005 cm^-1
+  apart from 13,100 cm^-1, which resolves the emission lines' Doppler
+  width of about 0.014 cm^-1). US76 + Rayleigh + Lambertian 0.3; the
+  sun in photon units (``DAYGLOW_SOLAR_PHOTONS``, through
+  ``SolarIrradiance``); O2 as a ``LineAbsorber`` on the catalogue that
+  ``HITRANLineDatabase().load_catalogue("O2")`` reads from the file that
+  ``write_dayglow_par`` writes (no HITRAN file is in the repository:
+  o2a16's 1,500 seeded lines with a seeded Einstein A, g' and g'' and
+  global quanta "b 0"/"X 0", or "b 1"/"X 1" for a seeded
+  ``DAYGLOW_HOT_SHARE`` of them); and the airglow as a
+  ``LineListVolumeEmissionRate`` of the O2(b, v = 0, 1, 2) populations
+  that ``Yankovsky().solve`` gives (``dayglow_populations``) on the
+  model grid. Its backgrounds: O2 and N2 from US76, O from
+  ``climatology.atomic_oxygen`` (month 7, the tangent latitude), O3 and
+  CO2 at fixed densities; its photolysis rates are each reaction's
+  published top-of-atmosphere rate at every altitude (the optically thin
+  limit: flux-driven rates need O2 and O3 cross sections, which are not
+  in the repository). ``emission="population"`` puts the same
+  populations through ``PopulationEmissionRate`` instead.
+  ``dayglowlimb16_check_indices`` picks its 8 golden wavenumbers.
+* ``amf16_case``: ``smoke_case`` over a weak background absorber (that of
+  ``tests/test_amf.py``) with ``AirMassFactor``: the box air-mass factors
+  that DOAS trace-gas retrievals ask for, which they run in float64 (in
+  float32 the AMF is ill-conditioned and the engine warns).
+
 ``POL16_SOLVER_*`` is the solver-level case of the 16-stream polarized
 check: the JAX package cannot compile its polarized engine at 16 streams
 on the CPU, so ``tools/make_torch_golden.py`` stores the inputs and
@@ -179,6 +216,22 @@ O2A16_AEROSOL_OD = 0.1
 O2A16_SCALE_HEIGHT_M = 2000.0
 # the levels at which the golden file holds the cross sections
 O2A16_XS_LEVELS = np.linspace(0, 100, 10).round().astype(int)
+# the host-side slice's cells
+GOLDEN_DAYGLOWLIMB16_PATH = os.path.join(DATA, "golden_dayglowlimb16.npz")
+GOLDEN_AMF16_PATH = os.path.join(DATA, "golden_amf16.npz")
+DAYGLOW_TANGENTS_M = np.arange(60000.0, 100001.0, 2000.0)
+DAYGLOW_ALTITUDES_M = np.linspace(0.0, 100000.0, 101)
+DAYGLOW_WAVENUMBERS = 13100.0 + 0.005 * np.arange(4096)
+DAYGLOW_SEED = 762
+DAYGLOW_HOT_SHARE = 0.1
+# the solar spectral irradiance near 762 nm, about 1.23 W m^-2 nm^-1, in
+# photons m^-2 s^-1 nm^-1 (the emission's units)
+DAYGLOW_SOLAR_PHOTONS = 4.72e18
+# O3 and CO2 number densities [m^-3] (``tests/test_photchem.py:17-25``)
+DAYGLOW_O3_M3 = 1.0e14
+DAYGLOW_CO2_M3 = 6.0e17
+DAYGLOW_MONTH = 7.0
+AMF16_BACKGROUND_M1 = 5e-7
 POL16_SOLVER_AZIMUTH = 0.5
 POL16_SOLVER_NUM_AZIMUTH = 3
 
@@ -621,6 +674,200 @@ def o2a16_case(sk, dtype: str, wavenumbers_cminv, mie_table,
         param_values={"median_radius": np.full(len(alts), 120.0),
                       "mode_width": np.full(len(alts), 1.6)})
     atmo["surface"] = sk.constituent.LambertianSurface(0.3)
+    return config, geometry, viewing, atmo
+
+
+def _dayglow_emission_parameters():
+    """(Einstein A, g', g'', hot-band mask) of the dayglow cell's lines
+    (numpy seed ``DAYGLOW_SEED``)."""
+    rng = np.random.default_rng(DAYGLOW_SEED)
+    n = O2A16_NUM_LINES
+    einstein_a = rng.uniform(0.005, 0.1, n)
+    g_upper = 2.0 * rng.integers(0, 31, n) + 1.0
+    g_lower = 2.0 * rng.integers(0, 31, n) + 1.0
+    hot = rng.uniform(size=n) < DAYGLOW_HOT_SHARE
+    return einstein_a, g_upper, g_lower, hot
+
+
+def dayglow_par_lines():
+    """The 160-column HITRAN records of the dayglow cell's O2 line file:
+    o2a16's lines (``_o2a16_lines``) with, from numpy seed
+    ``DAYGLOW_SEED``, an Einstein A uniform in 0.005-0.1 s^-1, g' and g''
+    of rotational levels (2J + 1, J up to 30), and the global quanta
+    "b 1"/"X 1" (the hot band) for a ``DAYGLOW_HOT_SHARE`` of the lines,
+    "b 0"/"X 0" for the rest, in the layout of
+    ``tests/test_lineemission.py:93-116`` (delta_air in 8.5f, since a
+    negative 8.6f takes 9 columns)."""
+    lines = _o2a16_lines()
+    einstein_a, g_upper, g_lower, hot = _dayglow_emission_parameters()
+    rows = []
+    for i in range(O2A16_NUM_LINES):
+        qup, qlo = ("b 1", "X 1") if hot[i] else ("b 0", "X 0")
+        row = (
+            f"{7:2d}{1:1d}{lines['nu0'][i]:12.6f}"
+            f"{lines['intensity'][i]:10.3E}{einstein_a[i]:10.3E}"
+            f"{lines['gamma_air'][i]:5.3f}{lines['gamma_self'][i]:5.3f}"
+            f"{lines['elower'][i]:10.4f}{lines['n_air'][i]:4.2f}"
+            f"{lines['delta_air'][i]:8.5f}"
+        )
+        row += f"{qup:>15}{qlo:>15}"
+        row += " " * (146 - len(row))
+        row += f"{g_upper[i]:7.1f}{g_lower[i]:7.1f}"
+        if len(row) != 160:
+            msg = f"record {i} has {len(row)} columns, not 160"
+            raise ValueError(msg)
+        rows.append(row)
+    return rows
+
+
+def write_dayglow_par(db_root):
+    """Write the dayglow cell's O2 line file where a HITRAN line database
+    rooted at ``db_root`` reads it (``<db_root>/hitran/lines/O2.par``)
+    and return its path."""
+    path = os.path.join(db_root, "hitran", "lines", "O2.par")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(dayglow_par_lines()) + "\n")
+    return path
+
+
+def dayglow_container(sk):
+    """The dayglow cell's ``LimbVertical`` container, of ``sk``."""
+    return sk.viewinggeo.LimbVertical.from_tangent_parameters(
+        sk.solar.SolarGeometryHandlerForced(60.0, 30.0),
+        DAYGLOW_TANGENTS_M,
+        tangent_latitude=20.0,
+        tangent_longitude=40.0,
+        time=None,
+        observer_altitude=600000.0,
+        viewing_azimuth=90.0,
+        reference_altitude=80000.0,
+    )
+
+
+def dayglow_populations(sk, altitudes_m, temperature_k, pressure_pa,
+                        latitude_deg=20.0):
+    """O2(b, v = 0, 1, 2) number densities [m^-3] on ``altitudes_m`` from
+    ``sk.photchem.Yankovsky().solve``: O2 and N2 from the pressure and
+    temperature (VMR 0.2095 and 0.7808), O from
+    ``sk.climatology.atomic_oxygen`` (month ``DAYGLOW_MONTH``), O3 and CO2
+    fixed, and each photolysis channel at its reaction's published
+    top-of-atmosphere rate at every altitude."""
+    t = np.asarray(temperature_k, dtype=np.float64)
+    n_air = np.asarray(pressure_pa, dtype=np.float64) / (
+        sk.constants.K_BOLTZMANN * t)
+    nz = t.size
+    backgrounds = {
+        "O2": 0.2095 * n_air,
+        "N2": 0.7808 * n_air,
+        "O": sk.climatology.atomic_oxygen.number_density(
+            altitudes_m, DAYGLOW_MONTH, latitude_deg),
+        "O3": np.full(nz, DAYGLOW_O3_M3),
+        "CO2": np.full(nz, DAYGLOW_CO2_M3),
+    }
+    model = sk.photchem.Yankovsky()
+    rates = {r.rate_name: np.full(nz, r.toa_rate_constant)
+             for r in model.photo_reactions}
+    pops = model.solve(t, backgrounds, rates)
+    return {v: pops[f"O2(b, v={v})"] for v in (0, 1, 2)}
+
+
+def dayglowlimb16_check_indices():
+    """The 8 indices into ``DAYGLOW_WAVENUMBERS`` of the golden values:
+    the cores of the 4 strongest emission lines in the grid (by
+    Einstein A), the cores of the 2 strongest absorption lines among the
+    rest, and the 2 grid points farthest from any line."""
+    lines = _o2a16_lines()
+    einstein_a = _dayglow_emission_parameters()[0]
+    nu0, s = lines["nu0"], lines["intensity"]
+    grid = DAYGLOW_WAVENUMBERS
+    inside = (nu0 > grid[0] + 0.1) & (nu0 < grid[-1] - 0.1)
+    # emission favours small E'' (the Boltzmann factor of E' at ~200 K)
+    emit = np.where(inside, einstein_a * np.exp(
+        -1.4387768775039339 * lines["elower"] / 200.0), 0.0)
+    by_emission = list(np.argsort(emit)[::-1][:4])
+    rest = np.where(inside, s, 0.0)
+    rest[by_emission] = 0.0
+    by_absorption = list(np.argsort(rest)[::-1][:2])
+    picked = [int(np.argmin(np.abs(grid - nu0[i])))
+              for i in by_emission + by_absorption]
+    dist = np.min(np.abs(grid[:, None] - nu0[None, :]), axis=1)
+    for i in np.argsort(dist)[::-1]:
+        if all(abs(int(i) - j) > 25 for j in picked):
+            picked.append(int(i))
+        if len(picked) == 8:
+            break
+    return np.array(sorted(picked))
+
+
+def dayglowlimb16_case(sk, dtype: str, wavenumbers_cminv,
+                       emission="line_list", device=None):
+    """(config, geometry, viewing, atmosphere) of the dayglow cell on
+    ``wavenumbers_cminv``, built from ``sk``; the O2 line file must
+    already be under ``sk``'s database root (``write_dayglow_par``).
+    ``emission``: "line_list" (``LineListVolumeEmissionRate``) or
+    "population" (``PopulationEmissionRate``). For the port, ``device``
+    is where the line absorber and the emission spectra run (None: the
+    GPU)."""
+    port = sk.__name__.endswith("_torch")
+    dev = {"device": device} if port else {}
+    container = dayglow_container(sk)
+    geometry = container.model_geometry(DAYGLOW_ALTITUDES_M)
+    config = sk.Config(
+        num_streams=16,
+        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=sk.SingleScatterSource.Exact,
+        emission_source=sk.EmissionSource.VolumeEmissionRate,
+        num_singlescatter_moments=16,
+        num_do_sza=2,
+        dtype=dtype,
+    )
+    atmo = sk.Atmosphere(geometry, config,
+                         wavenumbers_cminv=np.asarray(wavenumbers_cminv))
+    sk.climatology.us76.add_us76_standard_atmosphere(atmo)
+    alts = geometry.altitudes()
+    atmo["solar"] = sk.constituent.SolarIrradiance(
+        irradiance=DAYGLOW_SOLAR_PHOTONS)
+    atmo["rayleigh"] = sk.constituent.Rayleigh()
+    catalogue = sk.database.HITRANLineDatabase().load_catalogue("O2")
+    atmo["o2"] = sk.constituent.VMRAltitudeAbsorber(
+        sk.optical.LineAbsorber(catalogue, **dev), alts,
+        np.full(len(alts), 0.2095))
+    pressure, temperature = sk.climatology.us76.us76_pressure_temperature(
+        alts)
+    pops = dayglow_populations(sk, alts, temperature, pressure)
+    if emission == "population":
+        atmo["airglow"] = sk.constituent.PopulationEmissionRate(
+            {"altitude": alts, "temperature": temperature,
+             "O2(b)": pops[0], "O2(b, v=1)": pops[1],
+             "O2(b, v=2)": pops[2]},
+            catalogue, **dev)
+    else:
+        phem = sk.photchem.emission
+        band = phem.oxygen_a_band_from_catalogue(catalogue)
+        ver, weights = phem.oxygen_a_band_line_list_weights_from_populations(
+            band, temperature, pops[0], pops[1], pops[2])
+        atmo["airglow"] = sk.constituent.LineListVolumeEmissionRate(
+            alts, ver, band.wavelength_nm, weights, **dev)
+    atmo["surface"] = sk.constituent.LambertianSurface(0.3)
+    return config, geometry, container, atmo
+
+
+def amf16_case(sk, dtype: str, wavelengths_nm):
+    """``smoke_case`` with ``AirMassFactor``: the ``air_mass_factor``
+    output, -d ln I / d tau of each layer, over a weak absorber of
+    extinction ``AMF16_BACKGROUND_M1`` exp(-z / 8 km) as
+    ``ManualOpticalProperties`` (``tests/test_amf.py:45-59``: about 5% of
+    the Rayleigh extinction at 330 nm), so that the single-scatter albedo
+    is below the solvers' ceiling of 1 - 1e-4 (``rt/disco.clamp_ssa``). In
+    pure Rayleigh it sits on the ceiling, where the AMF is ill-posed: the
+    JAX package's own two routes differ on it by 1.0e-4 of its largest
+    magnitude at 4 streams (``tests/test_torch_misc_constituents.py``)."""
+    config, geometry, viewing, atmo = smoke_case(sk, dtype, wavelengths_nm)
+    alts = geometry.altitudes()
+    atmo["background"] = sk.constituent.ManualOpticalProperties(
+        extinction=AMF16_BACKGROUND_M1 * np.exp(-alts / 8000.0))
+    atmo["amf"] = sk.constituent.AirMassFactor()
     return config, geometry, viewing, atmo
 
 

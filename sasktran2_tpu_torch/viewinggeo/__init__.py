@@ -8,8 +8,8 @@ relative solar azimuth, and per-ray cos-SZA) that the host-side ray tracer
 consumes to produce static traced-ray tables.
 
 (Copy of ``sasktran2_tpu/viewinggeo/__init__.py`` for the PyTorch port,
-without ``TangentAltitude`` and the ``ViewingGeometryContainer`` family,
-which come with ROADMAP Queue 1 slice 6, limb.)
+without ``TangentAltitude``, the 2D geometry's ray (ROADMAP Queue 1
+item 8). The ``ViewingGeometryContainer`` family is in ``containers.py``.)
 """
 
 from __future__ import annotations
@@ -85,10 +85,19 @@ class FluxObserverSolar:
     observer_altitude_m: float
 
 
+from .containers import (  # noqa: E402  (depends on the classes above)
+    LimbVertical,
+    ViewingGeometryContainer,
+    ecef_to_sasktran2_ray,
+)
+
 __all__ = [
     "FluxObserverSolar",
     "GroundViewingSolar",
+    "LimbVertical",
     "SolarAnglesObserverLocation",
     "TangentAltitudeSolar",
     "ViewingGeometry",
+    "ViewingGeometryContainer",
+    "ecef_to_sasktran2_ray",
 ]

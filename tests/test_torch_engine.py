@@ -11,7 +11,8 @@ route (polarized thermal emission, polarized radiance with flux
 observers, a BRDF on a limb scan, polarized BRDF) take the port's generic
 route too and match at 1e-10; so do successive orders, scalar and
 polarized; EngineIntegratedLineShape runs; a viewing geometry
-that is not the port's raises ``NotImplementedError``; an engine with no
+that is not the port's raises ``TypeError`` and a ray of the 2D geometry's
+kind ``NotImplementedError``; an engine with no
 device named needs a GPU. The JAX engine's side of each case is read from
 ``sasktran2_tpu_torch/data/golden_test_torch_engine.npz``
 (``tests/torch_support.py``)."""
@@ -152,14 +153,30 @@ class _RayList:
         self.observer_rays = rays
 
 
-@pytest.mark.parametrize(("config", "viewing", "match"), [
+class _TangentAltitude:
+    """A ray of the 2D geometry's kind (``sasktran2_tpu.TangentAltitude``),
+    which the port does not take yet."""
+
+    tangent_altitude_m = 20000.0
+    observer_altitude_m = 200000.0
+
+
+def _viewing_with(ray):
+    viewing = skt.ViewingGeometry()
+    viewing.add_ray(ray)
+    return viewing
+
+
+@pytest.mark.parametrize(("config", "viewing", "error", "match"), [
     (lambda: _config(skt),
-     lambda: _RayList(_ground_viewing().observer_rays),
-     "_RayList.*ViewingGeometryContainer"),
+     lambda: _RayList(_ground_viewing().observer_rays), TypeError,
+     "sasktran2_tpu_torch.ViewingGeometry.*_RayList"),
+    (lambda: _config(skt), lambda: _viewing_with(_TangentAltitude()),
+     NotImplementedError, "_TangentAltitude.*Queue 1 item 8"),
 ])
-def test_out_of_slice_raises(config, viewing, match):
+def test_out_of_slice_raises(config, viewing, error, match):
     geometry = _geometry(skt, "PlaneParallel")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         skt.Engine(config(), geometry, viewing(), device="cpu")
 
 
@@ -329,7 +346,7 @@ def test_reference_objects_refused(foreign):
         with pytest.raises(TypeError, match="Geometry1D"):
             skt.Engine(config, ref[1], viewing, device="cpu")
     elif foreign == "viewing":
-        with pytest.raises(NotImplementedError, match="ViewingGeometry"):
+        with pytest.raises(TypeError, match="ViewingGeometry"):
             skt.Engine(config, geometry, ref[2], device="cpu")
     else:
         engine = skt.Engine(config, geometry, viewing, device="cpu")

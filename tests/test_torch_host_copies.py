@@ -14,6 +14,7 @@ ground-viewing ray; each side builds its objects with its own package from
 the same numpy inputs."""
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -535,3 +536,79 @@ def test_atmosphere_from_reference_carries_brdf(name):
     assert type(got.surface.brdf).__module__ == "sasktran2_tpu_torch.rt.brdf"
     assert not np.shares_memory(got.surface.brdf_args, ref.surface.brdf_args)
     _assert_atmospheres_equal(got, ref)
+
+
+# the host side's numpy modules the port copies unchanged: each file must
+# equal the original but for its copy note (``_copy_of``)
+VERBATIM_COPIES = [
+    "constants.py", "units.py", "spectroscopy/__init__.py", "geodetic.py",
+    "solar/__init__.py", "solar/geometry.py", "solar/model.py",
+    "viewinggeo/containers.py", "database/hitran_line.py",
+    "photchem/__init__.py", "photchem/types.py", "photchem/models.py",
+    "photchem/emission.py", "constituent/misc.py",
+    "climatology/atomic_oxygen.py", "climatology/glossac.py",
+    "climatology/mipas.py", "optical/refraction.py", "optical/named.py",
+    "optical/baum.py",
+]
+
+
+def _copy_of(text, rel):
+    """The port's copy of the JAX package's module text: its docstring
+    (one line of summary where it has none) gains the copy note, and the
+    reference path it gives on its own machine names the upstream source
+    instead."""
+    text = re.sub(r"``/\w+/reference/src/", "``upstream SASKTRAN2 src/", text)
+    if not text.startswith('"""'):
+        text = ('"""Solar irradiance model and solar-angle handlers."""\n\n'
+                + text)
+    end = text.index('"""', 3)
+    note = (f"\n\n(Copy of ``sasktran2_tpu/{rel}`` for the PyTorch port;\n"
+            "``tests/test_torch_host_copies.py`` pins it to the original.)\n")
+    return '"""' + text[3:end].rstrip("\n") + note + text[end:]
+
+
+@pytest.mark.parametrize("rel", VERBATIM_COPIES)
+def test_verbatim_copies_equal(rel):
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    got = (repo / "sasktran2_tpu_torch" / rel).read_text()
+    ref = (repo / "sasktran2_tpu" / rel).read_text()
+    assert got == _copy_of(ref, rel)
+
+
+def test_atomic_oxygen_table_equal():
+    """The port reads its own copy of the atomic-oxygen table, byte-equal
+    to the JAX package's."""
+    import pathlib
+
+    from sasktran2_tpu.climatology import atomic_oxygen as ao_ref
+    from sasktran2_tpu_torch.climatology import atomic_oxygen as ao_port
+
+    port = pathlib.Path(ao_port._DATA_PATH)
+    ref = pathlib.Path(ao_ref._DATA_PATH)
+    assert port.parent.parent == pathlib.Path(ao_port.__file__).parent
+    assert port.read_bytes() == ref.read_bytes()
+    for a, b in zip(ao_port._load(), ao_ref._load()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_yankovsky_network_equal():
+    """The Yankovsky reaction network: every photo and chemical reaction's
+    species, yields, Einstein coefficients, TOA rates and rate constants
+    on a temperature grid."""
+    t = np.linspace(150.0, 350.0, 9)
+
+    def network(pkg):
+        model = pkg.photchem.Yankovsky()
+        photo = [(r.rate_name, r.in_molecule.name,
+                  [p.name for p in r.products], r.quantum_yield,
+                  r.toa_rate_constant, r.wavelength_range_nm,
+                  r.line_center_nm) for r in model.photo_reactions]
+        chem = [([m.name for m in r.reactants], [p.name for p in r.products],
+                 r.quantum_yield, r.einstein_a,
+                 None if r.rate is None else list(r.rate(t)))
+                for r in model.chemical_reactions]
+        return photo, chem, [m.name for m in model.molecules()]
+
+    assert network(skt) == network(sk)

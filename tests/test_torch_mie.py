@@ -307,7 +307,7 @@ def test_database_root_is_the_ports_own(tmp_path, monkeypatch):
     assert skt.database.database_root() == tmp_path / "port"
     assert (tmp_path / "port").is_dir()
     with pytest.raises(NotImplementedError, match="not ported"):
-        skt.database.HITRANLineDatabase  # noqa: B018
+        skt.database.WebDatabase  # noqa: B018
 
 
 def test_refractive_indices_equal(tmp_path, monkeypatch):

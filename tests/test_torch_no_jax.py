@@ -9,11 +9,13 @@ over a MODIS BRDF, ground-viewing only; thermal infrared with DO
 emission, an absorber and flux observers; or all of polarized, thermal,
 BRDF and flux observers, which takes the generic per-wavelength route;
 or successive orders; or EngineIntegratedLineShape over a line-by-line
-absorber and an aerosol from a Mie table generated on the CPU),
-and check that neither ``jax`` nor any ``sasktran2_tpu`` module is in
-``sys.modules`` and that the host ray tracer was built inside
-the port. A static pass parses every module of the port, and
-``chip_smoke.py``, for such imports. With no GPU, an engine that names no
+absorber and an aerosol from a Mie table generated on the CPU; or a small
+O2 A-band dayglow limb scan from a ``LimbVertical`` container, with a
+HITRAN line file and Yankovsky airglow), and check that neither ``jax``
+nor any ``sasktran2_tpu`` module, nor ``pandas``, is in ``sys.modules``
+and that the host ray tracer was built inside the port. A static pass
+parses every module of the port, and ``chip_smoke.py``, for such imports,
+and for ``pandas`` imported outside a function. With no GPU, an engine that names no
 device raises instead of running on the CPU."""
 
 import ast
@@ -39,6 +41,57 @@ SCRIPT = textwrap.dedent("""
     from sasktran2_tpu_torch import native
 
     case = sys.argv[1]
+    if case == "airglow":
+        # a small O2 A-band dayglow limb scan from a LimbVertical container,
+        # its O2 lines read by HITRANLineDatabase from a file written under
+        # a temporary database root, the airglow from Yankovsky populations
+        import tempfile
+        from sasktran2_tpu_torch import scenarios as sc
+        root = tempfile.mkdtemp()
+        os.environ["SASKTRAN2_TPU_TORCH_DB_ROOT"] = root
+        sc.write_dayglow_par(root)
+        container = sk.LimbVertical.from_tangent_parameters(
+            sk.solar.SolarGeometryHandlerForced(60.0, 30.0),
+            np.array([65000.0, 80000.0, 95000.0]), 20.0, 40.0, None,
+            600000.0, 90.0, reference_altitude=80000.0)
+        geometry = container.model_geometry(np.linspace(0.0, 100000.0, 11))
+        config = sk.Config(
+            num_streams=4,
+            multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+            single_scatter_source=sk.SingleScatterSource.Exact,
+            emission_source=sk.EmissionSource.VolumeEmissionRate,
+            num_do_sza=2,
+        )
+        wvn = sc.DAYGLOW_WAVENUMBERS[[145, 1859]]
+        atmo = sk.Atmosphere(geometry, config, wavenumbers_cminv=wvn)
+        sk.climatology.us76.add_us76_standard_atmosphere(atmo)
+        atmo["rayleigh"] = sk.constituent.Rayleigh()
+        atmo["surface"] = sk.constituent.LambertianSurface(0.3)
+        cat = sk.database.HITRANLineDatabase().load_catalogue("O2")
+        alts = geometry.altitudes()
+        atmo["o2"] = sk.constituent.VMRAltitudeAbsorber(
+            sk.optical.LineAbsorber(cat, device="cpu"), alts,
+            np.full(alts.size, 0.2095))
+        p, t = sk.climatology.us76.us76_pressure_temperature(alts)
+        pops = sc.dayglow_populations(sk, alts, t, p)
+        band = sk.photchem.emission.oxygen_a_band_from_catalogue(cat)
+        ver, w = sk.photchem.emission.\
+            oxygen_a_band_line_list_weights_from_populations(
+                band, t, pops[0], pops[1], pops[2])
+        atmo["airglow"] = sk.constituent.LineListVolumeEmissionRate(
+            alts, ver, band.wavelength_nm, w, device="cpu")
+        out = sk.Engine(config, geometry, container,
+                        device="cpu").calculate_radiance(atmo)
+        rad = out["radiance"].to_numpy()
+        assert rad.shape == (2, 3, 1) and np.all(rad > 0), rad
+        assert "wf_airglow_photon_ver" in out and "tangent_altitude" in out
+        print(sk.Engine(config, geometry, container,
+                        device="cpu").ray_tracer)
+        print(sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "sasktran2_tpu", "pandas")
+        ))
+        sys.exit(0)
     # "generic": polarized, thermal, a BRDF, a limb ray and a flux observer,
     # the configuration of the generic per-wavelength route
     # "so": successive orders (a 4 x 4 direction grid, 4 iterations)
@@ -141,14 +194,14 @@ SCRIPT = textwrap.dedent("""
     print(engine.ray_tracer)
     print(sorted(
         m for m in sys.modules
-        if m == "jax" or m.startswith("jax.")
-        or m == "sasktran2_tpu" or m.startswith("sasktran2_tpu.")
+        if m.split(".")[0] in ("jax", "sasktran2_tpu", "pandas")
     ))
 """)
 
 
 @pytest.mark.parametrize("case", ["scalar", "polarized", "flux", "brdf",
-                                  "thermal", "generic", "so", "optical"])
+                                  "thermal", "generic", "so", "optical",
+                                  "airglow"])
 def test_port_never_imports_jax(case):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -193,6 +246,37 @@ def test_port_sources_import_neither_jax_nor_reference():
     sources = list(_port_sources())
     assert len(sources) > 30
     bad = [b for path in sources for b in _forbidden_imports(path)]
+    assert bad == []
+
+
+def _import_time_pandas(path):
+    """``import pandas`` statements that run when the module is imported:
+    those outside every function body."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    inside = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inside.update(id(n) for n in ast.walk(node) if n is not node)
+    bad = []
+    for node in ast.walk(tree):
+        if id(node) in inside:
+            continue
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        if any(n.split(".")[0] == "pandas" for n in names):
+            bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno}")
+    return bad
+
+
+def test_port_imports_pandas_only_inside_functions():
+    """The card's machine has no pandas: ``solar.to_mjd`` imports it when
+    called, and no module of the port imports it at import time."""
+    bad = [b for path in _port_sources() for b in _import_time_pandas(path)]
     assert bad == []
 
 

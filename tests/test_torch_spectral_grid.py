@@ -198,9 +198,9 @@ def test_remaining_refusals():
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         skt.Atmosphere(_Geometry2D(), config, wavelengths_nm=[500.0])
     engine = skt.Engine(config, geometry, viewing, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 13, multi-GPU"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9, multi-GPU"):
         engine.calculate_radiance(atmo, mesh=object())
-    with pytest.raises(NotImplementedError, match="ViewingGeometryContainer"):
+    with pytest.raises(TypeError, match="sasktran2_tpu_torch.ViewingGeometry"):
         skt.Engine(config, geometry, _RayList(viewing.observer_rays),
                    device="cpu")
 

@@ -18,7 +18,7 @@ independent in this model, so 8 wavelengths taken from a case's
 1024-point grid give the same values as the full grid. Runs the JAX
 engine on the CPU in float64:
 
-    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|polsolimb16|pol16_solver|o2a16|tests|all] [--tests MODULE,...]
+    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|polsolimb16|pol16_solver|o2a16|dayglowlimb16|amf16|tests|all] [--tests MODULE,...]
 
 and writes ``sasktran2_tpu_torch/data/golden_<case>.npz`` with the
 wavelength indices, the wavelengths, ``radiance``, the ``*_flux``
@@ -37,6 +37,15 @@ forward graph compiles in about a minute.
 cross sections at 10 of the 101 levels and one Monochromatic engine call
 at 16 fine wavenumbers (``o2a16_golden``; about 15 minutes, 7 of them the
 table).
+
+``dayglowlimb16`` is the O2 A-band dayglow limb scan
+(``dayglowlimb16_case``, ``dayglowlimb16_golden``): the engine in float32
+and float64 at the 8 wavenumbers of ``dayglowlimb16_check_indices``, with
+the O2 line file written to a temporary database root of the JAX
+package. ``amf16`` is ``amf16_case`` (``amf16_golden``: its
+``air_mass_factor`` beside the radiance and the ``wf_*``, with the JAX
+package's own float32 error at each level, below 60 km and on the whole
+column, the difference between its two routes, and its route).
 
 ``tests`` runs the port's CPU test modules of ``TEST_MODULES`` (or those
 given by ``--tests``) in record mode (``tests/torch_support.py``): each
@@ -106,7 +115,7 @@ def main():
     }
     parser.add_argument("--case",
                         choices=[*cases, *so_cases, "pol16_solver", "o2a16",
-                                 "tests", "all"],
+                                 "dayglowlimb16", "amf16", "tests", "all"],
                         default="all")
     parser.add_argument("--tests", default=None,
                         help="with --case tests: the comma-separated test "
@@ -157,6 +166,10 @@ def main():
              pol16_solver(sk, solar()[idx], idx))
     if args.case in ("o2a16", "all"):
         save(scenarios.GOLDEN_O2A16_PATH, o2a16_golden(sk))
+    if args.case in ("dayglowlimb16", "all"):
+        save(scenarios.GOLDEN_DAYGLOWLIMB16_PATH, dayglowlimb16_golden(sk))
+    if args.case in ("amf16", "all"):
+        save(scenarios.GOLDEN_AMF16_PATH, amf16_golden(sk, solar()[idx], idx))
     if args.case in ("tests", "all"):
         t0 = time.perf_counter()
         record_test_goldens(args.tests.split(",") if args.tests else None)
@@ -445,6 +458,107 @@ def o2a16_golden(sk):
     return out
 
 
+def dayglowlimb16_golden(sk):
+    """The dayglowlimb16 cell's golden values: the JAX engine in float64
+    at the 8 wavenumbers of ``dayglowlimb16_check_indices`` (radiance,
+    every ``wf_*`` and the container's ``tangent_altitude``), with its own
+    float32 error beside each (``jax_f32_err_<name>``) and its route. The
+    O2 line file is written to a temporary directory that the JAX
+    package's database root (``SASKTRAN2_TPU_DB_ROOT``) points at while
+    the cases are built."""
+    import tempfile
+
+    import jax
+
+    from sasktran2_tpu_torch import scenarios as sc
+
+    idx = sc.dayglowlimb16_check_indices()
+    wvn = sc.DAYGLOW_WAVENUMBERS[idx]
+    out = {"indices": idx, "wavenumbers_cminv": wvn}
+    runs = {}
+    before = os.environ.get("SASKTRAN2_TPU_DB_ROOT")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["SASKTRAN2_TPU_DB_ROOT"] = root
+        try:
+            sc.write_dayglow_par(root)
+            for dtype in ("float32", "float64"):
+                jax.config.update("jax_enable_x64", dtype == "float64")
+                config, geometry, viewing, atmo = sc.dayglowlimb16_case(
+                    sk, dtype, wvn)
+                engine = sk.Engine(config, geometry, viewing)
+                t0 = time.perf_counter()
+                res = engine.calculate_radiance(atmo)
+                print(f"dayglowlimb16: JAX {dtype} engine call on the CPU "
+                      f"(compile included): {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+                runs[dtype] = {k: res[k].to_numpy() for k in res.keys()
+                               if k == "radiance" or k.startswith("wf_")}
+            out["tangent_altitude"] = res["tangent_altitude"].to_numpy()
+            out["twostream_fast_ok"] = np.array(engine._twostream_fast_ok())
+            out["polarized_fast_ok"] = np.array(engine._polarized_fast_ok())
+        finally:
+            if before is None:
+                os.environ.pop("SASKTRAN2_TPU_DB_ROOT", None)
+            else:
+                os.environ["SASKTRAN2_TPU_DB_ROOT"] = before
+    out.update(runs["float64"])
+    for key, ref in runs["float64"].items():
+        out[f"jax_f32_err_{key}"] = sc.golden_error(
+            key, runs["float32"][key], ref)
+    return out
+
+
+def amf16_golden(sk, wl, idx):
+    """The amf16 cell's golden values at the wavelengths ``wl``: the JAX
+    engine in float64 (radiance, every ``wf_*`` and ``air_mass_factor``),
+    its own float32 error beside each on the whole column
+    (``jax_f32_err_<name>``), and for the variables with an altitude axis
+    below 60 km (``jax_f32_err_below60_<name>``) and at each level
+    (``jax_f32_err_by_level_<name>``), all relative to the column's
+    largest magnitude; the difference between its fast path and its
+    generic route in float64 (``jax_route_err_<name>``, by
+    ``golden_error``), and its route for the cell."""
+    import jax
+
+    from sasktran2_tpu_torch import scenarios as sc
+
+    def keep(out):
+        return {k: out[k].to_numpy() for k in out.keys()
+                if k in ("radiance", "air_mass_factor")
+                or k.startswith("wf_")}
+
+    runs = {}
+    for dtype, generic in (("float32", False), ("float64", False),
+                           ("float64", True)):
+        jax.config.update("jax_enable_x64", dtype == "float64")
+        config, geometry, viewing, atmo = sc.amf16_case(sk, dtype, wl)
+        engine = sk.Engine(config, geometry, viewing)
+        if generic:
+            engine._twostream_fast_ok = lambda: False
+        elif dtype == "float64":
+            gates = {k: np.array(getattr(engine, f"_{k}")()) for k in
+                     ("twostream_fast_ok", "polarized_fast_ok")}
+        t0 = time.perf_counter()
+        runs[dtype, generic] = keep(engine.calculate_radiance(atmo))
+        print(f"amf16: JAX {dtype} engine call on the CPU"
+              f"{', generic route forced' if generic else ''} (compile "
+              f"included): {time.perf_counter() - t0:.1f} s", flush=True)
+    ref = runs["float64", False]
+    low = geometry.altitudes() < 60000.0
+    out = {"indices": idx, "wavelengths_nm": wl, **ref, **gates}
+    for key, r in ref.items():
+        f32 = runs["float32", False][key]
+        out[f"jax_f32_err_{key}"] = sc.golden_error(key, f32, r)
+        out[f"jax_route_err_{key}"] = sc.golden_error(
+            key, runs["float64", True][key], r)
+        if r.shape[0] == low.size:
+            by_level = (np.abs(f32 - r).reshape(low.size, -1).max(axis=1)
+                        / np.max(np.abs(r)))
+            out[f"jax_f32_err_by_level_{key}"] = by_level
+            out[f"jax_f32_err_below60_{key}"] = float(by_level[low].max())
+    return out
+
+
 def record_test_goldens(modules=None):
     """Run the port's CPU tests in record mode (``tests/torch_support.py``):
     every ``jax_reference`` computes its JAX side, and each test module's
@@ -473,11 +587,15 @@ TEST_MODULES = (
     "test_torch_engine",
     "test_torch_flux",
     "test_torch_generic",
+    "test_torch_host_data",
     "test_torch_kernels",
     "test_torch_limb",
+    "test_torch_lineemission",
     "test_torch_lineshape",
     "test_torch_mie",
+    "test_torch_misc_constituents",
     "test_torch_nstream",
+    "test_torch_photchem",
     "test_torch_polarized",
     "test_torch_polarized_engine",
     "test_torch_scatterer",
@@ -487,6 +605,7 @@ TEST_MODULES = (
     "test_torch_successive_engine",
     "test_torch_thermal",
     "test_torch_twostream",
+    "test_torch_viewinggeo_containers",
 )
 
 
