@@ -165,6 +165,30 @@ each of 16-19 must launch K1 and K3 at the sizes named.
     than 1e-8 by o2a16's rule, in float32 level by level beside the JAX
     package's own float32 error), on the route the JAX engine's gates
     choose (``phase_amf16``).
+26. tomo2d (``scenarios.tomo2d_case``: tomographic limb retrievals along
+    the orbit track; a ``Geometry2D`` of 101 altitudes x 41 horizontal
+    angles, 40 ``TangentAltitude`` rays in 4 images, exact single
+    scatter, a 2D aerosol and a 2D absorber, W = 64, float32, full
+    Jacobians): the host 2D trace timed (the first engine constructor;
+    the trace is memoised, and the float64 check must reuse it), one cold
+    and one warm call with Jacobians and one radiance-only call, the
+    peak memory and the rows' share; zero launches of K1 and K3 (the 2D
+    path has no DO solve); against ``golden_tomo2d.npz`` (radiance and
+    the LOS optical depth at 8 wavelengths, each ``wf_*`` at 2 of them)
+    by the gates of phase 4 (``phase_tomo2d``).
+27. ``calculate_radiance(mesh=)`` on ground16's engine and atmosphere
+    from phase 4: ``parallel.make_mesh(devices=[cuda:0, cuda:0])``, two
+    blocks of 512 wavelengths, each on a host thread of its own. Radiance
+    and every ``wf_*`` within rtol 1e-6 and atol 1e-4 of the largest
+    magnitude of the unsharded call (the JAX mesh test's tolerance), the
+    largest difference printed; K1 and K3 launched exactly twice as often
+    per call as unsharded, instance by instance; the split calls timed
+    beside the unsharded one. Then a mesh of two devices, the card and
+    the host CPU, one block each, at 4 wavelengths in float64 on
+    ground16, tomo2d and a small successive-orders limb scan: the same
+    tolerance against the unsharded call on the card, the kernels
+    launched only by the card's block, and the per-device tables (SO
+    plans, 2D operators) built on both devices (``phase_mesh``).
 
 Every phase prints its end time since the script started.
 
@@ -172,12 +196,13 @@ Each engine case prints its launches per kernel instance, the peak device
 memory, the warm-call times with and without Jacobians and the Jacobian
 rows' share: 5 warm calls each for ground16, 3 for the cells that take a
 few seconds a call, 1 for brdf16, thermallimb16, polthermallimb4, o2a16,
-dayglowlimb16 and an SO cell whose cold call takes over 60 s, and none
+dayglowlimb16, tomo2d and an SO cell whose cold call takes over 60 s, and none
 with Jacobians for pol16 and limbpol16 (their cold call's time stands
 for it), so that the script ends well inside its limit. The check that
 no ``jax`` or ``sasktran2_tpu`` module is loaded is made again before the
 kernel record, which lists every kernel instance with its launches in
-its own case (and in every case that launched it) and, apart, the
+its own case (and in every case that launched it, ``ground16_mesh2``
+the split call of phase 27) and, apart, the
 torch-op paths: the K = 48 block-Thomas solve (with its library call)
 and the SO transport step.
 
@@ -607,25 +632,32 @@ def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label,
                    f32=False, qu_scale="own"):
     """Errors against reference values (``golden``: a dict or an npz of
     the JAX float64 golden values, or the port's own float64 run), by
-    ``scenarios.golden_error``: radiance and fluxes per element (the
-    polarized Q and U relative to their largest magnitude), each ``wf_*``
-    against its largest magnitude. For a float32 run (``f32``) the JAX
-    package's own float32 error on the same case (``jax_f32_err_<name>``
-    in the golden file, from ``tools/make_torch_golden.py``) is printed
-    beside each where the file has it."""
+    ``scenarios.golden_error``: radiance, fluxes and the line-of-sight
+    optical depth per element (the polarized Q and U relative to their
+    largest magnitude), each ``wf_*`` against its largest magnitude. A
+    golden that holds its ``wf_*`` at only some of its wavelengths names
+    their positions in ``idx`` as ``wf_positions``. For a float32 run
+    (``f32``) the JAX package's own float32 error on the same case
+    (``jax_f32_err_<name>`` in the golden file, from
+    ``tools/make_torch_golden.py``) is printed beside each where the file
+    has it."""
     from sasktran2_tpu_torch.scenarios import golden_error
 
-    names = [k for k in golden if k in ("radiance", "air_mass_factor")
-             or k.startswith("wf_")
+    names = [k for k in golden if k in ("radiance", "air_mass_factor",
+                                        "los_optical_depth")
+             or k.startswith("wf_") and k != "wf_positions"
              or (k.endswith("_flux") and not k.startswith("jax_f32_err_"))]
+    wf_idx = (np.asarray(idx)[np.asarray(golden["wf_positions"])]
+              if "wf_positions" in golden else idx)
     errs = {}
     for name in names:
         got = out[name].to_numpy()
         ax = out[name].dims.index("wavelength")
-        errs[name] = golden_error(name, np.take(got, idx, axis=ax),
+        at = wf_idx if name.startswith("wf_") else idx
+        errs[name] = golden_error(name, np.take(got, at, axis=ax),
                                   golden[name], qu_scale=qu_scale)
     # the box air-mass factors are gated as a weighting function
-    tols = {k: rad_tol if k == "radiance" or (
+    tols = {k: rad_tol if k in ("radiance", "los_optical_depth") or (
         k.endswith("_flux") and not k.startswith("wf_")) else wf_tol
         for k in errs}
 
@@ -636,9 +668,11 @@ def compare_golden(out, golden, idx, rad_tol, wf_tol, what, label,
         return f", JAX f32 {float(golden[key]):.3e}"
 
     qu = "their max" if qu_scale == "own" else "the max of |I|"
-    print(f"[{label}] {what} vs reference at {len(idx)} wavelengths "
-          f"(radiance and fluxes max rel per element, polarized Q, U rel to "
-          f"{qu}, wf_* rel to their max): "
+    at_wf = ("" if wf_idx is idx
+             else f", wf_* at {len(wf_idx)} of them")
+    print(f"[{label}] {what} vs reference at {len(idx)} wavelengths{at_wf} "
+          f"(radiance, fluxes and LOS optical depth max rel per element, "
+          f"polarized Q, U rel to {qu}, wf_* rel to their max): "
           + ", ".join(f"{k} {v:.3e} (<= {tols[k]:g}{note(k)})"
                       for k, v in errs.items()), flush=True)
     for k, v in errs.items():
@@ -697,6 +731,7 @@ def engine_outputs(out):
 # wavelengths/s of each engine case of this run: what -> (with Jacobians,
 # radiance only)
 RATES = {}
+GROUND16 = "engine nstr=16 P=100 nlos=4"
 
 
 def force_generic(engine):
@@ -708,9 +743,14 @@ def force_generic(engine):
     return engine
 
 
+# (engine, atmosphere) of the cases that a later phase reuses, by ``what``
+KEPT = {}
+
+
 def engine_case(sk, build, golden_path, wl, reps, what, label,
                 kernels_expected, generic=None, qu_scale="own", idx=None,
-                check_out=None, dtype="float32"):
+                check_out=None, dtype="float32", check_engines=None,
+                keep=False):
     """One engine case of ``sasktran2_tpu_torch.scenarios`` end to end on
     the card: the cold call in ``dtype`` (float32, or float64 for a cell
     whose users configure it) with Jacobians through an engine built with
@@ -737,7 +777,9 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     took it. ``qu_scale`` is ``compare_golden``'s; ``idx`` the golden
     wavelengths' indices in ``wl`` (default
     ``scenarios.GOLDEN_INDICES``); ``check_out``, where given, is called
-    with the cold call's output. Then the median of ``reps`` warm calls
+    with the cold call's output, and ``check_engines`` with the engine and
+    the other precision's engine; ``keep`` keeps the engine and its
+    atmosphere in ``KEPT[what]`` for a later phase. Then the median of ``reps`` warm calls
     (None: 3, or 1 where the cold call took over 60 s; 0: the cold call's
     time with Jacobians and one call without) with and without
     Jacobians, as wavelengths/s (kept in ``RATES``) and
@@ -809,6 +851,8 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     if generic == "forced":
         force_generic(engine_o)
     out_o = engine_o.calculate_radiance(atmo_o)
+    if check_engines is not None:
+        check_engines(engine, engine_o)
     at_golden = np.arange(len(idx))
     # (output, the golden wavelengths' indices in it, its width)
     (out32, idx32, w32), (out64, idx64, w64) = (
@@ -876,6 +920,9 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
           f"{nout} outputs, ({med_jac:.4f} - {med:.4f}) / {nout} = "
           f"{(med_jac - med) / nout:.4f} s per row, "
           f"{(med_jac - med) / med_jac:.3f} of the call", flush=True)
+    if keep:
+        atmo.calculate_derivatives = True
+        KEPT[what] = (engine, atmo)
     return launches
 
 
@@ -1443,6 +1490,203 @@ def phase_amf16(sk, label):
         check_out=check_out, dtype="float64")
 
 
+def phase_tomo2d(sk, label):
+    """Phase 26: tomo2d (``scenarios.tomo2d_case``: a ``Geometry2D`` of 101
+    altitudes x 41 horizontal angles, 40 ``TangentAltitude`` rays in 4
+    images, exact single scatter, 2D aerosol and absorber, W = 64) through
+    ``engine_case``: the host 2D trace timed first (the engine
+    constructor; the trace is memoised, so every later engine of the
+    cell, the float64 check's included, reuses it, which is checked), one
+    cold and one warm call with Jacobians and one radiance-only call,
+    against ``golden_tomo2d.npz`` (radiance and LOS optical depth at 8
+    wavelengths, every ``wf_*`` at 2 of them) by the gates of phase 4.
+    The 2D path has no DO solve: K1 and K3 must not launch. Returns the
+    launch counts."""
+    from sasktran2_tpu_torch import scenarios as sc
+    from sasktran2_tpu_torch.rt import singlescatter
+
+    wl = sc.so_wavelengths()
+    t0 = time.perf_counter()
+    first = sk.Engine(*sc.tomo2d_case(sk, "float32", wl[:1])[:3])
+    trace_s = time.perf_counter() - t0
+    R, S = first._traced2d.mask.shape
+    print(f"[{label}] tomo2d host 2D trace (first engine constructor): "
+          f"{trace_s:.2f} s for {R} rays x {S} segments on "
+          f"{first._traced2d.nloc} locations ({trace_s / R:.3f} s per ray); "
+          f"ray tracer: {first.ray_tracer}", flush=True)
+
+    def memoised(engine, engine_o):
+        same = (engine._traced2d is first._traced2d
+                and engine_o._traced2d is first._traced2d)
+        print(f"[{label}] tomo2d: the float32 and float64 engines reuse the "
+              f"memoised trace: {same} ({len(singlescatter._TRACE_2D_CACHE)} "
+              f"trace(s) in the memo)", flush=True)
+        check(same, "tomo2d: an engine of the same geometry traced again")
+
+    launches = engine_case(
+        sk, sc.tomo2d_case, sc.GOLDEN_TOMO2D_PATH, wl, 1,
+        "tomo2d 2D A=101 H=41 nlos=40 (exact SS)", label,
+        kernels_expected={}, idx=sc.SO_GOLDEN_INDICES,
+        check_engines=memoised,
+    )
+    print(f"[{label}] tomo2d kernel launches with Jacobians: thomas "
+          f"{launches['thomas']}, jacobi {launches['jacobi']} (0 and 0: no "
+          "DO solve on the 2D path)", flush=True)
+    check(launches["thomas"] == 0 and launches["jacobi"] == 0,
+          "tomo2d launched a DO kernel")
+    return launches
+
+
+def same_as_unsharded(out_m, out_s, what, label):
+    """Radiance and every ``wf_*`` of a split call ``out_m`` against the
+    unsharded ``out_s`` at the JAX mesh test's tolerance (rtol 1e-6, atol
+    1e-4 of the variable's largest magnitude); prints the largest
+    difference of each."""
+    worst = {}
+    for key in out_s.keys():
+        b = out_s[key].to_numpy()
+        a = out_m[key].to_numpy()
+        peak = np.abs(b).max()
+        worst[key] = float(np.abs(a - b).max() / (peak if peak > 0 else 1.0))
+        ok = np.allclose(a, b, rtol=1e-6, atol=1e-4 * peak)
+        check(ok and a.shape == b.shape,
+              f"{what}: {key} differs from the unsharded call")
+    print(f"[{label}] {what} vs unsharded (rtol 1e-6, atol 1e-4 x "
+          f"peak), largest |difference| / peak: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+
+
+def small_so_case(sk, dtype, wavelengths_nm):
+    """(config, geometry, viewing, atmosphere) of a small
+    successive-orders limb scan (``tests/test_torch_mesh.py``'s): 6
+    altitudes, 4 streams, one tangent ray."""
+    config = sk.Config(
+        num_streams=4,
+        multiple_scatter_source=sk.MultipleScatterSource.SuccessiveOrders,
+        num_successive_orders_incoming=16,
+        num_successive_orders_iterations=4,
+        single_scatter_source=sk.SingleScatterSource.Exact,
+        dtype=dtype,
+    )
+    geometry = sk.Geometry1D(
+        cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
+        altitude_grid_m=np.linspace(0.0, 100000.0, 6),
+        geometry_type=sk.GeometryType.Spherical,
+    )
+    viewing = sk.ViewingGeometry()
+    viewing.add_ray(sk.TangentAltitudeSolar(30000.0, 0.3, 200000.0, 0.6))
+    atmo = sk.Atmosphere(geometry, config, wavelengths_nm=wavelengths_nm)
+    sk.climatology.us76.add_us76_standard_atmosphere(atmo)
+    atmo["rayleigh"] = sk.constituent.Rayleigh()
+    atmo["surface"] = sk.constituent.LambertianSurface(0.3)
+    return config, geometry, viewing, atmo
+
+
+def mesh_card_and_cpu(sk, label):
+    """``mesh=`` over two devices, the card and the host CPU, one block
+    of 2 wavelengths each, in float64 (where the card's kernels and the
+    host's plain twins agree to rounding; in float32 the DO solve's own
+    rounding, 3e-4 of ground16's radiance against the golden, parts
+    them) on ground16, tomo2d and a small successive-orders limb scan
+    (new engines; tomo2d's reuses the memoised trace): each split within
+    ``same_as_unsharded`` of the unsharded call on the card; K1 and K3
+    launched exactly as often as unsharded (the CPU block runs their
+    plain twins on the host); and each engine's per-device tables (SO
+    plans, 2D operators) on both devices afterwards, so that each block
+    ran on its own device's tables."""
+    import torch
+    from sasktran2_tpu_torch import scenarios as sc
+    from sasktran2_tpu_torch.parallel import make_mesh
+
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    mesh = make_mesh(devices=[card, cpu])
+    wl = sc.smoke_wavelengths()[sc.GOLDEN_INDICES[::2]]
+    cases = []
+    for what, build, tables in (
+        ("ground16_card_cpu", sc.smoke_case, lambda e: []),
+        ("tomo2d_card_cpu", sc.tomo2d_case,
+         lambda e: [k[0] for k in e._rays2d._on.keys()]),
+        ("so_small_card_cpu", small_so_case,
+         lambda e: [k[1] for k in e._lazy.keys() if k[0] == "so_plans"]),
+    ):
+        case = build(sk, "float64", wl)
+        cases.append((what, sk.Engine(*case[:3]), case[3], tables))
+    for what, engine, atmo, tables in cases:
+        reset_launches()
+        out_s = engine.calculate_radiance(atmo)
+        whole = read_launches()
+        reset_launches()
+        t0 = time.perf_counter()
+        out_m = engine.calculate_radiance(atmo, mesh=mesh)
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+        split = read_launches()
+        devices = tables(engine)
+        print(f"[{label}] {what}: W={len(wl)} f64 with Jacobians over "
+              f"{[str(d) for d in mesh.wavelength_devices]} in "
+              f"{split_s:.3f} s; launches {split['thomas']} / "
+              f"{split['jacobi']} (unsharded {whole['thomas']} / "
+              f"{whole['jacobi']}); per-device tables on "
+              f"{[str(d) for d in devices] or 'none (no such table)'}",
+              flush=True)
+        same_as_unsharded(out_m, out_s, what, label)
+        check(split["thomas"] == whole["thomas"]
+              and split["jacobi"] == whole["jacobi"],
+              f"{what}: the CPU block launched a kernel on the card")
+        check(not devices or {card, cpu} <= set(devices),
+              f"{what}: the per-device tables are not on both devices")
+
+
+def phase_mesh(sk, label):
+    """Phase 27: ``calculate_radiance(mesh=)`` on ground16's engine and
+    atmosphere from phase 4 (no new host build): ``make_mesh(devices=
+    [cuda:0, cuda:0])``, two blocks of 512 wavelengths on the one card,
+    each on a host thread of its own. Radiance and every ``wf_*`` must
+    match the unsharded call at the JAX mesh test's tolerance
+    (``same_as_unsharded``), and K1 and K3 must launch exactly twice as
+    often per call as unsharded, instance by instance (each block runs
+    the whole model). Times: the unsharded call and two split calls with
+    Jacobians. Then ``mesh_card_and_cpu``. Returns the launch counts of a
+    split call on the card."""
+    import torch
+    from sasktran2_tpu_torch.parallel import make_mesh
+
+    engine, atmo = KEPT[GROUND16]
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2)
+    print(f"[{label}] mesh: {mesh.shape}, devices "
+          f"{[str(d) for d in mesh.wavelength_devices]}", flush=True)
+
+    def call(m):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.calculate_radiance(atmo, mesh=m)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, read_launches()
+
+    out_s, whole_s, whole = call(None)
+    torch.cuda.reset_peak_memory_stats()
+    out_m, split_s, split = call(mesh)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, split2_s, _ = call(mesh)
+    W = out_s["radiance"].to_numpy().shape[0]
+    print(f"[{label}] ground16_mesh2 W={W} f32 with Jacobians: unsharded "
+          f"{whole_s:.4f} s ({W / whole_s:.1f} wavelengths/s), split in 2 "
+          f"blocks {split_s:.4f} / {split2_s:.4f} s "
+          f"({W / split2_s:.1f} wavelengths/s warm); peak device memory of "
+          f"the split call {peak_gb:.2f} GB", flush=True)
+    same_as_unsharded(out_m, out_s, "ground16_mesh2", label)
+    print(f"[{label}] ground16_mesh2 kernel launches per call: {split} "
+          f"(unsharded {whole})", flush=True)
+    for name, key in (("thomas", "thomas_by_k"), ("jacobi", "jacobi_by_n")):
+        check(split[name] == 2 * whole[name] and whole[name] > 0
+              and split[key] == {k: 2 * v for k, v in whole[key].items()},
+              f"ground16_mesh2: {name} launches are not twice the "
+              "unsharded call's")
+    mesh_card_and_cpu(sk, label)
+    return split
+
+
 def capture_engine_inputs(sk, build, wl, module=None, keep=None):
     """The eigensolve and block-Thomas inputs of an engine case's
     radiance-only f32 call on the card, as ``module`` (default: the
@@ -1649,8 +1893,8 @@ def phases_2_to_7(sk, dev, wl, label):
 
     # phases 4, 5: the ground-viewing engine end to end, and times
     launches = engine_case(
-        sk, smoke_case, GOLDEN_PATH, wl, 5, "engine nstr=16 P=100 nlos=4",
-        label, kernels_expected={"thomas": [16], "jacobi": [8]},
+        sk, smoke_case, GOLDEN_PATH, wl, 5, GROUND16,
+        label, kernels_expected={"thomas": [16], "jacobi": [8]}, keep=True,
     )
 
     for name, rec in (("thomas", thomas_rec), ("jacobi", jacobi_rec)):
@@ -1864,7 +2108,7 @@ def main():
         "generic16 nstr=16 P=100 nlos=4 (generic route forced)", label,
         kernels_expected={"thomas": [16], "jacobi": [8]}, generic="forced",
     )
-    fast_rate = RATES["engine nstr=16 P=100 nlos=4"]
+    fast_rate = RATES[GROUND16]
     generic_rate = RATES[
         "generic16 nstr=16 P=100 nlos=4 (generic route forced)"]
     print(f"[{label}] generic16 against ground16 (the same case on the fast "
@@ -1947,6 +2191,14 @@ def main():
     amf_launches = phase_amf16(sk, label)
     phase_done(label, 25)
 
+    # --- phase 26: the 2D tomographic limb cell ---------------------------------
+    tomo_launches = phase_tomo2d(sk, label)
+    phase_done(label, 26)
+
+    # --- phase 27: the mesh= wavelength split on ground16 -------------------------
+    mesh_launches = phase_mesh(sk, label)
+    phase_done(label, 27)
+
     check_no_jax(label)
     by_path = {
         "ground16": launches, "limb16": limb_launches, "flux16": flux_launches,
@@ -1957,6 +2209,7 @@ def main():
         "polflux4": polflux_launches, "polthermallimb4": polthermal_launches,
         "solimb16_doinit": sodo_launches, "o2a16": o2a_launches,
         "dayglowlimb16": dayglow_launches, "amf16": amf_launches,
+        "tomo2d": tomo_launches, "ground16_mesh2": mesh_launches,
     }
 
     def instance(kernel, size, main):

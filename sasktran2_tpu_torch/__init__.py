@@ -36,12 +36,13 @@ from .config import (
 )
 from .dataset import DataArray, Dataset
 from .geodetic import Geodetic
-from .geometry import Geometry1D
+from .geometry import Geometry1D, Geometry2D
 from .viewinggeo import (
     FluxObserverSolar,
     GroundViewingSolar,
     LimbVertical,
     SolarAnglesObserverLocation,
+    TangentAltitude,
     TangentAltitudeSolar,
     ViewingGeometry,
     ViewingGeometryContainer,
@@ -56,6 +57,7 @@ from . import (
     legendre,
     mie,
     optical,
+    parallel,
     photchem,
     solar,
     spectroscopy,
@@ -74,6 +76,7 @@ __all__ = [
     "FluxType",
     "Geodetic",
     "Geometry1D",
+    "Geometry2D",
     "GeometryType",
     "GroundViewingSolar",
     "InputValidationMode",
@@ -86,6 +89,7 @@ __all__ = [
     "SolarAnglesObserverLocation",
     "SpectralGridMode",
     "StokesBasis",
+    "TangentAltitude",
     "TangentAltitudeSolar",
     "ThreadingLib",
     "ThreadingModel",
@@ -100,6 +104,7 @@ __all__ = [
     "legendre",
     "mie",
     "optical",
+    "parallel",
     "photchem",
     "solar",
     "spectroscopy",

@@ -14,9 +14,9 @@ produces a plain dict-of-numpy pytree that the Engine feeds to its jitted
 compute function; the constituent pipeline runs in numpy exactly once per
 calculation, like the reference.
 
-(Copy of ``sasktran2_tpu/atmosphere.py`` for the PyTorch port, on a 1D
-geometry: every spectral grid mode, the two integrated line-shape modes
-included. 2D storage raises ``NotImplementedError``.)
+(Copy of ``sasktran2_tpu/atmosphere.py`` for the PyTorch port: every
+spectral grid mode, the two integrated line-shape modes included; on a ``Geometry2D`` the storage holds one row per location,
+``angle * nalt + alt``.)
 """
 
 from __future__ import annotations
@@ -216,12 +216,6 @@ class Atmosphere:
     ):
         self.model_geometry = model_geometry
         self.config = config
-        if hasattr(model_geometry, "num_horizontal"):
-            msg = (
-                "2D atmosphere storage is not ported to the PyTorch engine "
-                "yet (ROADMAP Queue 1 item 8, 2D geometry)"
-            )
-            raise NotImplementedError(msg)
         self._integrated_lineshape = (
             config.spectral_grid_mode
             == SpectralGridMode.AtmosphereIntegratedLineShape
@@ -271,7 +265,12 @@ class Atmosphere:
             if self.wavelengths_nm is not None
             else numwavel
         )
-        nalt = model_geometry.num_altitudes
+        from .geometry import Geometry2D
+
+        if isinstance(model_geometry, Geometry2D):
+            nalt = model_geometry.num_horizontal * model_geometry.num_altitudes
+        else:
+            nalt = model_geometry.num_altitudes
         nleg = max(config.num_streams, config.num_singlescatter_moments)
         if self._integrated_lineshape or self._engine_lineshape:
             # constituents evaluate on the fine grid; the storage is reduced

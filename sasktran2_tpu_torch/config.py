@@ -4,9 +4,7 @@ Copy of ``sasktran2_tpu/config.py`` for the PyTorch port, which imports
 nothing of the JAX package; ``tests/test_torch_host_copies.py`` pins its
 defaults and enum values to the original's. The fields mirror the upstream
 SASKTRAN2 configuration (``cpp/include/sasktran2/config.h:30-182``). The
-engine runs every 1D setting, successive orders and every spectral grid
-mode included; 2D geometry, ``mesh=`` and viewing-geometry containers
-are refused where they are passed.
+engine runs every setting the JAX engine runs, in 1D and in 2D.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ from .scatterer import (
     NumberDensityScatterer,
     NumberDensityScatterer2D,
 )
-from .vmr_absorber import VMRAltitudeAbsorber
+from .vmr_absorber import VMRAbsorber2D, VMRAltitudeAbsorber
 
 # the reference's names for them
 Manual = ManualOpticalProperties
@@ -56,6 +56,7 @@ __all__ = [
     "SolarIrradiance",
     "SurfaceThermalEmission",
     "ThermalEmission",
+    "VMRAbsorber2D",
     "VMRAltitudeAbsorber",
     "VolumeEmissionRate",
     "WeightedBRDF",

@@ -1,12 +1,10 @@
 """Scattering constituents: extinction-profile aerosols with arbitrary
 phase expansions.
 
-Counterpart of ``sasktran2_tpu/constituent/scatterer.py``: the 1D classes
-(numpy copies, pinned to the originals by tests), with
-``MieScatteringOptical``'s Mie on the device. The 2D classes
-(``NumberDensityScatterer2D``, ``ExtinctionScatterer2D``) wait for the
-port's 2D geometry (ROADMAP Queue 1 item 8) and raise
-``NotImplementedError`` naming it.
+Counterpart of ``sasktran2_tpu/constituent/scatterer.py``: numpy copies
+of its classes, the native-grid 2D ones (``NumberDensityScatterer2D``,
+``ExtinctionScatterer2D``) included, pinned to the originals by tests,
+with ``MieScatteringOptical``'s Mie on the device.
 """
 
 from __future__ import annotations
@@ -258,27 +256,119 @@ class ExtinctionScatterer(NumberDensityScatterer):
         m.interp_dim = f"{name}_altitude"
 
 
-def _not_ported_2d(name):
-    msg = (
-        f"{name} needs the 2D geometry, which is not ported to the PyTorch "
-        "engine yet (ROADMAP Queue 1 item 8, 2D geometry)"
-    )
-    return NotImplementedError(msg)
+class NumberDensityScatterer2D(NumberDensityScatterer):
+    """Scatterer specified by number density on the native
+    :class:`Geometry2D` ``(horizontal, altitude)`` grid — no spatial
+    interpolation (reference
+    ``src/sasktran2/constituent/numdenscatterer2d.py``)."""
+
+    def __init__(self, optical, number_density, param_values=None):
+        nd = np.asarray(number_density, dtype=np.float64)
+        if nd.ndim != 2 or 0 in nd.shape:
+            msg = (
+                "number_density must have non-empty shape "
+                f"(horizontal, altitude); got {nd.shape}"
+            )
+            raise ValueError(msg)
+        self._shape2d = nd.shape
+        super().__init__(optical, np.zeros(nd.size), nd.ravel(),
+                         param_values=param_values)
+
+    @property
+    def volume_spatial_mode(self) -> str:
+        return "native_2d"
+
+    def _validate(self, atmo):
+        from ..geometry import Geometry2D
+
+        geom = atmo.model_geometry
+        if not isinstance(geom, Geometry2D):
+            msg = (
+                "NumberDensityScatterer2D requires an atmosphere using "
+                "Geometry2D"
+            )
+            raise TypeError(msg)
+        shape = (geom.num_horizontal, geom.num_altitudes)
+        if self._shape2d != shape:
+            msg = (
+                "NumberDensityScatterer2D shape does not match the "
+                f"atmosphere: {self._shape2d} != {shape}"
+            )
+            raise ValueError(msg)
+
+    def _profile(self, atmo):
+        # native grid: identity mapping, no interpolation
+        return self.number_density, np.eye(self.number_density.size)
+
+    def _props(self, atmo):
+        # altitude-independent optical broadcast over all locations
+        props = self.optical.scattering_properties(atmo.wavelengths_nm)
+        A = self.number_density.size
+        W = len(np.atleast_1d(atmo.wavelengths_nm))
+        out = {}
+        for k in ("xs_total", "ssa"):
+            v = np.asarray(props[k])
+            out[k] = (
+                np.broadcast_to(v[None, :], (A, W)).copy()
+                if v.ndim == 1 else v
+            )
+        leg = np.asarray(props["legendre"])
+        out["legendre"] = (
+            np.broadcast_to(leg[:, None, :], (leg.shape[0], A, W)).copy()
+            if leg.ndim == 2 else leg
+        )
+        return out
+
+    def add_to_atmosphere(self, atmo):
+        self._validate(atmo)
+        super().add_to_atmosphere(atmo)
+
+    def register_derivative(self, atmo, name: str):
+        self._validate(atmo)
+        m = atmo.storage.get_derivative_mapping(f"wf_{name}")
+        self._fill_per_nd(m, atmo)
+        m.interp_dim = f"{name}_location"
 
 
-class NumberDensityScatterer2D:
-    """Native-grid 2D scatterer: waits for the port's 2D geometry."""
+class ExtinctionScatterer2D(NumberDensityScatterer2D):
+    """Native-grid 2D scatterer specified by extinction [m^-1] at a
+    reference wavelength (reference
+    ``src/sasktran2/constituent/numdenscatterer2d.py:160``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported_2d("NumberDensityScatterer2D")
+    def __init__(self, optical, extinction_per_m,
+                 extinction_wavelength_nm, param_values=None):
+        ext = np.asarray(extinction_per_m, dtype=np.float64)
+        self.extinction_per_m = ext
+        self.extinction_wavelength_nm = float(extinction_wavelength_nm)
+        super().__init__(optical, np.zeros_like(ext),
+                         param_values=param_values)
 
+    def _xs0(self):
+        props = self.optical.scattering_properties(
+            np.array([self.extinction_wavelength_nm])
+        )
+        return float(np.asarray(props["xs_total"]).ravel()[0])
 
-class ExtinctionScatterer2D:
-    """Native-grid 2D extinction scatterer: waits for the port's 2D
-    geometry."""
+    @property
+    def number_density(self):
+        xs0 = self._xs0()
+        return (
+            self.extinction_per_m.ravel() / xs0 if xs0 > 0
+            else np.zeros(self.extinction_per_m.size)
+        )
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported_2d("ExtinctionScatterer2D")
+    @number_density.setter
+    def number_density(self, value):
+        pass  # derived from the extinction field
+
+    def register_derivative(self, atmo, name: str):
+        self._validate(atmo)
+        m = atmo.storage.get_derivative_mapping(f"wf_{name}")
+        self._fill_per_nd(m, atmo)
+        xs0 = self._xs0()
+        inv = 1.0 / xs0 if xs0 > 0 else 0.0
+        m.interpolator = np.eye(self.extinction_per_m.size) * inv
+        m.interp_dim = f"{name}_location"
 
 
 class HGScatteringOptical:

@@ -22,7 +22,11 @@ rays or with flux observers.
 
 Covered: 1D geometry (plane-parallel, pseudo-spherical, spherical) with
 ground-viewing (``GroundViewingSolar``, ``SolarAnglesObserverLocation``)
-and limb (``TangentAltitudeSolar``) rays; DO multiple scatter (and for
+and limb (``TangentAltitudeSolar``) rays, and the 2D (altitude x
+horizontal angle) geometry of ``Geometry2D`` with its single scatter,
+Standard and VER emission, occultation and line-of-sight optical depth
+(``rt/raytrace2d.py``, the ``*_2d`` functions of
+``rt/singlescatter.py``); DO multiple scatter (and for
 limb rays the DO source evaluated along the traced rays on a grid of
 ``num_do_sza`` solar zenith angles); DO, exact or table single scatter;
 Standard and volume-emission-rate emission; occultation; the
@@ -35,13 +39,13 @@ solar zenith angles, with refracted internal rays, and polarized), which
 takes the generic route as in the JAX engine; every spectral grid mode,
 EngineIntegratedLineShape (the outputs mapped onto the output basis)
 included; viewing-geometry containers (``LimbVertical``), whose per-ray
-metadata joins the output. 2D geometry and ``mesh=`` raise
-``NotImplementedError`` naming their ROADMAP Queue 1 item.
+metadata joins the output. ``calculate_radiance(atmosphere, mesh=)``
+splits the wavelengths into one block per device of a
+``parallel.make_mesh`` mesh, each block on its own host thread.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 import warnings
 
@@ -54,6 +58,7 @@ from .config import (
     EmissionSource,
     FluxType,
     GeometryType,
+    InterpolationMethod,
     MultipleScatterSource,
     OccultationSource,
     SingleScatterSource,
@@ -61,8 +66,11 @@ from .config import (
 )
 from .dataset import DataArray, Dataset
 from .device import resolve_device, resolve_dtype
-from .geometry import Geometry1D
+from .geometry import Geometry1D, Geometry2D
+from .memo import LazyTables
+from .ops.wigner import legendre_p
 from .params import core_from_reference
+from .parallel import Mesh, sharded_radiance_fn
 from .rt import disco, disco_vec, do_source, singlescatter, successive
 from .rt.disco_nstream import solve_nstream, solve_nstream_m0_levels
 from .rt.disco_vec import NS
@@ -75,15 +83,11 @@ from .util.validation import validate_atmosphere_core
 from .viewinggeo import (
     GroundViewingSolar,
     SolarAnglesObserverLocation,
+    TangentAltitude,
     TangentAltitudeSolar,
     ViewingGeometry,
     ViewingGeometryContainer,
 )
-
-
-def _not_ported(what: str, slice_: str):
-    msg = f"{what} is not ported to the PyTorch engine yet ({slice_})"
-    return NotImplementedError(msg)
 
 
 # a box AMF combines a level's extinction and single-scatter-albedo
@@ -126,8 +130,17 @@ class Engine:
         self._thermal_do = config.emission_source in (
             EmissionSource.DiscreteOrdinates, EmissionSource.TwoStream,
         )
+        self._is_2d = isinstance(geometry, Geometry2D)
         self._check_slice()
         self._dtype = resolve_dtype(config.dtype, self._device)
+        self._polarized = config.num_stokes == 3
+        self._lazy = LazyTables()
+        self._num_azi_eff = None
+        self._brdf = None
+        self._stokes_cs = None
+        if self._is_2d:
+            self._init_2d()
+            return
 
         self._traced = trace_spherical(
             geometry.altitudes(),
@@ -157,7 +170,6 @@ class Engine:
         self._needs_ss_exact = ss in (
             SingleScatterSource.Exact, SingleScatterSource.Table,
         )
-        self._polarized = config.num_stokes == 3
         if self._needs_ss_exact:
             nleg = max(config.num_streams, config.num_singlescatter_moments)
             self._phase_tab = singlescatter.phase_tables(self._traced, nleg)
@@ -182,29 +194,125 @@ class Engine:
             self._build_do_tables()
         if self._needs_so:
             self._build_so_tables()
-        self._num_azi_eff = None
-        self._brdf = None
-        self._stokes_cs = (
-            self._stokes_basis_rotations() if self._polarized else None
-        )
+        if self._polarized:
+            self._stokes_cs = self._stokes_basis_rotations()
 
     @property
     def ray_tracer(self) -> str:
         """Which host ray tracer this engine used: the port's native C++
-        tracer (built with g++ at first use) or its numpy fallback."""
+        tracer (built with g++ at first use), its numpy fallback, or on a
+        ``Geometry2D`` the numpy 2D tracer."""
+        if self._is_2d:
+            return "numpy 2D"
         from .native import get_native_lib
 
         return "native C++" if get_native_lib() is not None else "numpy"
 
+    def _init_2d(self):
+        """The 2D route (``sasktran2_tpu/engine.py:70-160``, ``:227-232``),
+        with the JAX engine's refusals in its order: multiple scatter, an
+        emission source other than Standard or VER, non-linear
+        interpolation, a ray type the 2D tracer does not take, solar
+        refraction; and, in the port only, polarized radiance (the JAX
+        package has no polarized 2D path: its engine fails there with an
+        ``AttributeError``). ``TangentAltitudeSolar`` rays become
+        ``TangentAltitude`` rays at the horizontal angle whose in-plane
+        solar zenith angle is the ray's; ground-viewing and downward
+        ``SolarAnglesObserverLocation`` rays are placed in the plane by
+        the tracer. No DO, SO or exact-1D table is built."""
+        config, geometry = self._config, self._geometry
+        if config.multiple_scatter_source != MultipleScatterSource.NoSource:
+            msg = (
+                "Geometry2D supports single scatter, occultation and "
+                "emission (standard + volume emission rate) only "
+                "(reference restriction, src/sasktran2/engine.py:80-104)"
+            )
+            raise NotImplementedError(msg)
+        if config.emission_source not in (
+            EmissionSource.NoSource,
+            EmissionSource.Standard,
+            EmissionSource.VolumeEmissionRate,
+        ):
+            msg = (
+                "Geometry2D emission supports Standard and "
+                "VolumeEmissionRate modes only; got "
+                f"{config.emission_source}"
+            )
+            raise NotImplementedError(msg)
+        linear = InterpolationMethod.LinearInterpolation
+        if geometry.interpolation_method != linear:
+            msg = (
+                "Geometry2D supports LinearInterpolation only; got "
+                f"{geometry.interpolation_method}"
+            )
+            raise NotImplementedError(msg)
+        rays_2d = []
+        theta0_ref = float(np.arccos(np.clip(geometry.cos_sza, -1, 1)))
+        for r in self._rays:
+            if isinstance(r, GroundViewingSolar) or (
+                isinstance(r, SolarAnglesObserverLocation)
+                and r.cos_viewing_zenith < 0
+            ):
+                rays_2d.append(r)
+            elif isinstance(r, TangentAltitudeSolar):
+                # the tangent point at the horizontal angle where the
+                # in-plane local SZA (theta0 - theta) matches the ray's
+                th_t = theta0_ref - float(
+                    np.arccos(np.clip(r.cos_sza, -1, 1)))
+                rays_2d.append(TangentAltitude(
+                    tangent_altitude_m=r.tangent_altitude_m,
+                    observer_altitude_m=r.observer_altitude_m,
+                    horizontal_angle_radians=th_t,
+                    viewing_azimuth_radians=r.relative_azimuth,
+                ))
+            elif isinstance(r, TangentAltitude):
+                rays_2d.append(r)
+            else:
+                msg = (
+                    "Geometry2D requires TangentAltitude, "
+                    "TangentAltitudeSolar or ground-viewing rays"
+                )
+                raise NotImplementedError(msg)
+        if config.solar_refraction:
+            msg = (
+                "Geometry2D supports LOS refraction only; "
+                "solar_refraction is a 1D-path feature"
+            )
+            raise NotImplementedError(msg)
+        if self._polarized:
+            msg = (
+                "Geometry2D supports scalar radiance only: the JAX package "
+                "has no polarized 2D path (num_stokes=3)"
+            )
+            raise NotImplementedError(msg)
+        self._traced2d = singlescatter.traced_2d(
+            geometry.altitudes(), geometry.horizontal_angles(),
+            geometry.earth_radius_m, geometry.cos_sza, rays_2d,
+            refractive_index=geometry.refractive_index,
+            los_refraction=config.los_refraction,
+        )
+        self._rays2d = singlescatter.Rays2D(self._traced2d)
+        nleg = max(config.num_streams, config.num_singlescatter_moments)
+        self._phase_tab2d = np.moveaxis(
+            legendre_p(self._traced2d.cos_scatter, nleg), 0, -1
+        )
+        self._traced = None
+        self._needs_ss_exact = (
+            config.single_scatter_source == SingleScatterSource.Exact
+        )
+        self._needs_do = False
+        self._needs_so = False
+        self._flux_groups = []
+
     def _check_slice(self):
-        """Raise for every configuration outside the ported slices; the
-        message names its ROADMAP Queue 1 item."""
+        """Raise ``TypeError`` for a geometry or viewing geometry that is
+        not the port's, and ``NotImplementedError`` for a ray that a 1D
+        geometry cannot trace (the 2D rays are checked by ``_init_2d``)."""
         if not isinstance(self._geometry, Geometry1D):
             msg = (
-                "geometry must be a sasktran2_tpu_torch.Geometry1D, got "
-                f"{type(self._geometry).__module__}."
-                f"{type(self._geometry).__name__} (Geometry2D is ROADMAP "
-                "Queue 1 item 8)"
+                "geometry must be a sasktran2_tpu_torch.Geometry1D or "
+                f"Geometry2D, got {type(self._geometry).__module__}."
+                f"{type(self._geometry).__name__}"
             )
             raise TypeError(msg)
         if not isinstance(self._viewing, ViewingGeometry):
@@ -215,15 +323,18 @@ class Engine:
                 f"{type(self._viewing).__name__}"
             )
             raise TypeError(msg)
+        if self._is_2d:
+            return
         for ray in self._rays:
             if not isinstance(ray, (
                 GroundViewingSolar, SolarAnglesObserverLocation,
                 TangentAltitudeSolar,
             )):
-                raise _not_ported(
-                    f"ray type {type(ray).__name__}",
-                    "ROADMAP Queue 1 item 8, 2D geometry",
+                msg = (
+                    f"ray type {type(ray).__name__} is not traced on a "
+                    "Geometry1D (TangentAltitude rays need a Geometry2D)"
                 )
+                raise NotImplementedError(msg)
 
     def _twostream_fast_ok(self):
         """Whether the scalar wavelength-minor fast path takes this call
@@ -235,7 +346,8 @@ class Engine:
             not self._limb_groups and not self._flux_observers
         )
         return (
-            self._config.num_stokes == 1
+            not self._is_2d
+            and self._config.num_stokes == 1
             and self._needs_do
             and bool(self._do_groups or self._limb_groups)
             and brdf_ok
@@ -247,7 +359,8 @@ class Engine:
         ground-viewing or limb, over a Lambertian surface, with no flux
         observers and no DO or two-stream thermal source."""
         return (
-            self._config.num_stokes == 3
+            not self._is_2d
+            and self._config.num_stokes == 3
             and self._needs_do
             and bool(self._do_groups or self._limb_groups)
             and not self._flux_observers
@@ -528,10 +641,8 @@ class Engine:
             successive.build_so_polarized_tables(geoms[0], nleg)
             if self._polarized else None
         )
-        self._so_plans = [
-            successive.TransportPlan(g, self._device, self._dtype, pol_tabs)
-            for g in geoms
-        ]
+        self._so_geoms, self._so_pol_tabs = geoms, pol_tabs
+        self._so_plans = self._so_plans_on(self._device)
         self._so_do_init = (
             cfg.init_successive_orders_with_discrete_ordinates
             and not self._polarized
@@ -550,13 +661,26 @@ class Engine:
                 geoms[0].mu_d, geoms[0].phi_d, nstr, num_azi,
             )
 
-    @functools.cached_property
+    def _so_plans_on(self, device):
+        """The SO ``TransportPlan`` of each solar zenith grid point with its
+        sparse operators on ``device``, built once per device (the
+        ``mesh=`` blocks each run on their own)."""
+        key = _device_key(device)
+        return self._lazy.get(("so_plans", key), lambda: [
+            successive.TransportPlan(g, key, self._dtype, self._so_pol_tabs)
+            for g in self._so_geoms
+        ])
+
+    @property
     def _generic_tables(self):
         """The generic route's tables of each ground-viewing group and
         of each limb group's SZA-grid points: the scalar groups' own
         ``ModeTables``; for a polarized engine the ``VectorModeTables`` of
         the same geometry (``engine.py:487-543``), built at the first
         generic call."""
+        return self._lazy.get("generic_tables", self._build_generic_tables)
+
+    def _build_generic_tables(self):
         if not self._polarized:
             return ([t for _, t, _, _ in self._do_groups],
                     [tl for _, tl in self._limb_groups])
@@ -570,12 +694,16 @@ class Engine:
         return ([vector(t) for _, t, _, _ in self._do_groups],
                 [[vector(t) for t in tl] for _, tl in self._limb_groups])
 
-    @functools.cached_property
+    @property
     def _chapman(self):
         """Chapman factors [P, P] per DO solar zenith (ground groups, flux
         groups and the limb SZA grid): None (the solver's 1/mu0) for
         plane-parallel geometry, else the spherical shell slant paths
-        (``sasktran2_tpu/engine.py:1184-1249``)."""
+        (``sasktran2_tpu/engine.py:1184-1249``), built at the first DO
+        call."""
+        return self._lazy.get("chapman", self._build_chapman)
+
+    def _build_chapman(self):
         out = {}
         geom_type = self._geometry.geometry_type
         alts = self._geometry.altitudes()
@@ -987,6 +1115,8 @@ class Engine:
         whole wavelength batch: the line-of-sight sources
         (``engine.py:721-745``, ``:898-940``) plus the DO part. Emission
         and occultation are unpolarized and add to I."""
+        if self._is_2d:
+            return self._radiance_2d(core)
         cfg = self._config
         ext = core["extinction"]
         W = ext.shape[0]
@@ -1028,6 +1158,44 @@ class Engine:
             rad = rad + self._do_groups_batched(core)
         return rad
 
+    def _radiance_2d(self, core):
+        """Radiance [W, nlos] of a 2D atmosphere (``engine.py:690-719``):
+        single scatter times the solar irradiance; Standard emission plus
+        the attenuated surface emission of ground-hitting rays; VER
+        emission; occultation of the rays that do not hit the ground."""
+        cfg = self._config
+        ext = core["extinction"]
+        rad = torch.zeros((ext.shape[0], len(self._rays)), dtype=ext.dtype,
+                          device=ext.device)
+        rays = self._rays2d
+        if self._needs_ss_exact:
+            rad = rad + core["solar_irradiance"][:, None] * (
+                singlescatter.integrate_single_scatter_2d(
+                    ext, core["ssa"], core["leg_coeff"], rays,
+                    self._phase_tab2d,
+                )
+            )
+        ground = rays.on(ext.device, ext.dtype)["ground_hit"]
+        od = None
+        if (cfg.emission_source == EmissionSource.Standard
+                or cfg.occultation_source == OccultationSource.Standard):
+            # the call's one line-of-sight optical depth, which ``_compute``
+            # reuses as the los_optical_depth output
+            od = core["los_optical_depth"] = singlescatter.optical_depth_2d(
+                ext, rays)
+        if cfg.emission_source == EmissionSource.Standard:
+            rad = rad + singlescatter.emission_radiance_2d(
+                ext, core["ssa"], core["emission"], rays)
+            rad = rad + ground * (
+                (1.0 - core["albedo"]) * core["surface_emission"]
+            )[:, None] * torch.exp(-od)
+        if cfg.emission_source == EmissionSource.VolumeEmissionRate:
+            rad = rad + singlescatter.ver_emission_radiance_2d(
+                ext, core["emission"], rays)
+        if cfg.occultation_source == OccultationSource.Standard:
+            rad = rad + torch.exp(-od) * (1.0 - ground)
+        return rad
+
     def _so_radiance(self, core):
         """The successive-orders radiance [W, nlos] (scalar) or
         [W, nlos, 3] (polarized): the field's source integrated along the
@@ -1054,7 +1222,8 @@ class Engine:
                 "leg_coeff", "leg_a2", "leg_a3", "leg_b1"))
             _, j_field, i_ground = (
                 successive.successive_orders_field_polarized(
-                    ext, ssa, legs, alb, self._so_plans[0], iterations,
+                    ext, ssa, legs, alb, self._so_plans_on(ext.device)[0],
+                    iterations,
                 )
             )
             j_in, j_out = successive.so_source_along_rays_polarized(
@@ -1082,7 +1251,8 @@ class Engine:
                 internal, self._so_dir_tables
             )
         j_in, j_out, i_ground = [], [], []
-        for plan, tables in zip(self._so_plans, self._so_obs_tables):
+        for plan, tables in zip(self._so_plans_on(ext.device),
+                                self._so_obs_tables):
             _, j_field, ig = successive.successive_orders_field(
                 ext, ssa, core["leg_coeff"], alb, plan, iterations,
                 j_init=j_init,
@@ -1132,9 +1302,23 @@ class Engine:
         output (line of sight, Stokes component or flux) one backward pass
         of its sum over the wavelengths yields that output's Jacobian rows
         at every wavelength at once. Outputs and every gradient block come
-        back to the host in one copy."""
-        if mesh is not None:
-            raise _not_ported("mesh=", "ROADMAP Queue 1 item 9, multi-GPU")
+        back to the host in one copy.
+
+        ``mesh``: a ``parallel.Mesh`` (``parallel.make_mesh``). The
+        wavelengths are cut into one block per entry of its wavelength
+        axis, and each block runs the whole forward model and its
+        Jacobian rows on its device, on a host thread of its own, with
+        the engine's device-resident tables kept once per device
+        (``sasktran2_tpu/engine.py:1772-1781``; the reference threads
+        over wavelengths the same way, ``engine.cpp:560-572``). The
+        results come back in wavelength order before the one host copy.
+        The "los" axis is accepted and ignored."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            msg = (
+                "mesh must be a sasktran2_tpu_torch.parallel.Mesh "
+                f"(parallel.make_mesh), got {type(mesh).__name__}"
+            )
+            raise TypeError(msg)
         if not isinstance(atmosphere, Atmosphere):
             msg = (
                 "atmosphere must be a sasktran2_tpu_torch.Atmosphere; "
@@ -1142,9 +1326,10 @@ class Engine:
             )
             raise TypeError(msg)
         core_np = atmosphere.internal_object()
+        nloc = self._geometry.num_altitudes * (
+            self._geometry.num_horizontal if self._is_2d else 1)
         validate_atmosphere_core(
-            core_np, self._geometry.num_altitudes,
-            self._config.input_validation_mode,
+            core_np, nloc, self._config.input_validation_mode,
         )
         self._brdf = atmosphere.surface.brdf
         # the route, as the JAX engine chooses it at trace time
@@ -1178,27 +1363,12 @@ class Engine:
         ):
             warnings.warn(_F32_AMF_WARNING, stacklevel=2)
         core = core_from_reference(core_np, self._device, self._dtype)
-        for k in wrt:
-            core[k].requires_grad_(True)
-        with torch.set_grad_enabled(bool(wrt)):
-            outputs = self._outputs(core)           # [W, n] blocks
-        columns = [o[:, i] for o in outputs for i in range(o.shape[1])]
-        blocks = [torch.cat([o.detach() for o in outputs], dim=1)]
-        if wrt:
-            inputs = [core[k] for k in wrt]
-            rows = [
-                self._jacobian_row(col, inputs, i < len(columns) - 1)
-                for i, col in enumerate(columns)
-            ]
-            # [W, nout, ...] per input, as the JAX engine lays them out
-            blocks += [
-                torch.stack([row[j] for row in rows], dim=1)
-                for j in range(len(wrt))
-            ]
-        if self._config.output_los_optical_depth:
-            blocks.append(singlescatter.optical_depth(
-                core["extinction"].detach(), self._traced
-            ))
+        # with a mesh, each block builds what it lacks of the lazily built
+        # tables (its device's SO plans and 2D operators, the Chapman
+        # factors, the generic route's tables) through ``self._lazy``
+        blocks = (self._compute(core, wrt) if mesh is None
+                  else sharded_radiance_fn(
+                      lambda block: self._compute(block, wrt), mesh)(core))
         flat = torch.cat([b.reshape(-1) for b in blocks]).cpu().numpy()
         pieces = np.split(flat, np.cumsum([b.numel() for b in blocks])[:-1])
         host = [p.reshape(b.shape) for p, b in zip(pieces, blocks)]
@@ -1239,6 +1409,39 @@ class Engine:
             # per-ray geometry metadata (sasktran2_tpu/engine.py:1861-1865)
             out = self._viewing.add_geometry_to_radiance(out)
         return out
+
+    def _compute(self, core, wrt):
+        """The device-side blocks of one call on ``core`` (one device's
+        wavelengths): the outputs [W, nout], the Jacobian rows [W, nout,
+        ...] of each input in ``wrt``, and the line-of-sight optical
+        depth [W, nlos] where the configuration asks for it."""
+        for k in wrt:
+            core[k].requires_grad_(True)
+        with torch.set_grad_enabled(bool(wrt)):
+            outputs = self._outputs(core)           # [W, n] blocks
+        columns = [o[:, i] for o in outputs for i in range(o.shape[1])]
+        blocks = [torch.cat([o.detach() for o in outputs], dim=1)]
+        if wrt:
+            inputs = [core[k] for k in wrt]
+            rows = [
+                self._jacobian_row(col, inputs, i < len(columns) - 1)
+                for i, col in enumerate(columns)
+            ]
+            # [W, nout, ...] per input, as the JAX engine lays them out
+            blocks += [
+                torch.stack([row[j] for row in rows], dim=1)
+                for j in range(len(wrt))
+            ]
+        if self._config.output_los_optical_depth:
+            ext = core["extinction"].detach()
+            if "los_optical_depth" in core:     # the 2D radiance's own
+                blocks.append(core["los_optical_depth"].detach())
+            elif self._is_2d:
+                blocks.append(singlescatter.optical_depth_2d(ext,
+                                                             self._rays2d))
+            else:
+                blocks.append(singlescatter.optical_depth(ext, self._traced))
+        return blocks
 
     @staticmethod
     def _map_to_output_basis(out: Dataset, M):
@@ -1367,6 +1570,15 @@ class Engine:
                 continue
             for vname, arr, dims in emit(name, wf):
                 out[vname] = DataArray(arr, dims)
+
+
+def _device_key(device) -> torch.device:
+    """``device`` with its index: "cuda" is the current CUDA device (a
+    block's tensors report "cuda:0")."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 _FLUX_NAMES = {

@@ -1,12 +1,12 @@
-"""Model geometry container.
+"""Model geometry containers.
 
 API-compatible with the reference ``sasktran2.Geometry1D`` / ``Geometry2D``
 (``upstream SASKTRAN2 src/sasktran2/geometry.py:16-110``) but pure Python/numpy:
 on TPU all geometry is *static* host-side precompute that parameterizes the
 jit-compiled radiative transfer pipeline.
 
-(Copy of ``sasktran2_tpu/geometry.py`` for the PyTorch port: ``Geometry1D``
-only. ``Geometry2D`` is ROADMAP Queue 1 item 8.)
+(Copy of ``sasktran2_tpu/geometry.py`` for the PyTorch port;
+``tests/test_torch_host_copies.py`` pins it to the original.)
 """
 
 from __future__ import annotations
@@ -94,3 +94,43 @@ class Geometry1D:
             raise ValueError(msg)
         self._refractive_index = value
 
+
+class Geometry2D(Geometry1D):
+    """Structured spherical (altitude x horizontal-angle) geometry.
+
+    Currently supports the transmission/single-scatter subset, mirroring the
+    reference restriction (``src/sasktran2/engine.py:80-104``).
+    """
+
+    def __init__(
+        self,
+        cos_sza: float,
+        solar_azimuth: float,
+        earth_radius_m: float,
+        altitude_grid_m: np.ndarray,
+        horizontal_angle_grid_radians: np.ndarray,
+        interpolation_method: InterpolationMethod = InterpolationMethod.LinearInterpolation,
+    ):
+        super().__init__(
+            cos_sza,
+            solar_azimuth,
+            earth_radius_m,
+            altitude_grid_m,
+            interpolation_method,
+            GeometryType.Spherical,
+        )
+        angles = np.ascontiguousarray(horizontal_angle_grid_radians, dtype=np.float64)
+        if angles.ndim != 1 or len(angles) < 2 or np.any(np.diff(angles) <= 0):
+            msg = "horizontal_angle_grid_radians must be 1D strictly increasing"
+            raise ValueError(msg)
+        if angles[-1] - angles[0] >= np.pi:
+            msg = "horizontal angle span must be less than pi"
+            raise ValueError(msg)
+        self._horizontal_angles = angles
+
+    def horizontal_angles(self) -> np.ndarray:
+        return self._horizontal_angles
+
+    @property
+    def num_horizontal(self) -> int:
+        return len(self._horizontal_angles)

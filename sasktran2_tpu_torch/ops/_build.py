@@ -32,6 +32,9 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+# held while a wrapper adds to its launch counts: ``Engine.calculate_radiance(
+# mesh=)`` launches from one host thread per block of wavelengths
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:

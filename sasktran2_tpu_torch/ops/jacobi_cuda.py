@@ -180,8 +180,9 @@ def jacobi_eigh(a, sweeps: int):
         err = getattr(lib, _FUNCS[a.dtype])(
             *kernel_args(a, w, v, sweeps), stream)
     _build.check_launch(err, "jacobi")
-    jacobi_eigh.launches += 1
-    jacobi_eigh.launches_by_n[n] = jacobi_eigh.launches_by_n.get(n, 0) + 1
+    with _build.COUNT_LOCK:
+        jacobi_eigh.launches += 1
+        jacobi_eigh.launches_by_n[n] = jacobi_eigh.launches_by_n.get(n, 0) + 1
     return w, v
 
 

@@ -204,12 +204,13 @@ def _thomas_batched(lo, di, up, r):
     """The solve behind both the primal and the adjoint of
     ``lane_block_thomas_solve``: the Thomas kernel's domain (K <= 24) goes
     to ``thomas_cuda.thomas_solve``; larger blocks to the torch-op loop."""
-    from . import thomas_cuda
+    from . import _build, thomas_cuda
 
     K = di.shape[-2]
     if K <= THOMAS_K_MAX:
         return thomas_cuda.thomas_solve(lo, di, up, r)
-    TORCH_OP_THOMAS_CALLS_BY_K[K] = TORCH_OP_THOMAS_CALLS_BY_K.get(K, 0) + 1
+    with _build.COUNT_LOCK:
+        TORCH_OP_THOMAS_CALLS_BY_K[K] = TORCH_OP_THOMAS_CALLS_BY_K.get(K, 0) + 1
     return thomas_cuda.thomas_solve_plain(lo, di, up, r)
 
 

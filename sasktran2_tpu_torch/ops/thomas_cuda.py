@@ -89,8 +89,9 @@ def thomas_solve(lo, di, up, r):
             c.data_ptr(), y.data_ptr(), x.data_ptr(), P, K, W, stream,
         )
     _build.check_launch(err, "thomas")
-    thomas_solve.launches += 1
-    thomas_solve.launches_by_k[K] = thomas_solve.launches_by_k.get(K, 0) + 1
+    with _build.COUNT_LOCK:
+        thomas_solve.launches += 1
+        thomas_solve.launches_by_k[K] = thomas_solve.launches_by_k.get(K, 0) + 1
     return x
 
 

@@ -47,7 +47,9 @@ def mode_tables_from_reference(tables) -> ModeTables:
 
 def atmosphere_from_reference(ref_atmo, geometry, config) -> Atmosphere:
     """A JAX-side ``Atmosphere`` -> the port's ``Atmosphere`` on
-    (``geometry``, ``config``), the port's own objects, with copies of the
+    (``geometry``, ``config``), the port's own objects (a ``Geometry2D``
+    for a 2D atmosphere, whose storage has a row per location), with
+    copies of the
     same storage, surface (a BRDF as the port's kernel of the same class,
     with its arguments), wavelengths and derivative mappings. Constituents
     are not carried: the result is a raw-input atmosphere holding the state

@@ -1,6 +1,6 @@
 """Exact single scatter and the other line-of-sight sources (counterpart of
-``sasktran2_tpu/rt/singlescatter.py``, the 1D functions, scalar and
-polarized).
+``sasktran2_tpu/rt/singlescatter.py``: the 1D functions, scalar and
+polarized, and the 2D ones of the altitude x horizontal-angle geometry).
 
 Every input is wavelength-leading ([W, A] level profiles, [W] surface
 values), so each function is one batched torch computation over the whole
@@ -19,18 +19,28 @@ become constants of the caller's dtype and device:
 
 Padded segments carry zero weights; ``traced.mask`` removes them from
 every sum, and the divisions are made safe for value and gradient alike.
+
+The 2D functions take the sparse tables of ``rt/raytrace2d.trace_2d``
+(4-entry bilinear gathers per segment, boundary and solar step) as CSR
+matrices over the [nloc] location axis (``Rays2D``): a solar optical
+depth is one sparse product where the JAX package's gather materialises
+[W, R, S+1, 4 x 64] extinction values.
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from ..memo import LazyTables, bounded_memo
+from ..ops.sparse import SparseOp, apply_sparse
 from ..ops.wigner import legendre_p, wigner_d
 from ..util.torchmath import safe_div
 from .raytrace import TracedRays
+from .raytrace2d import TracedRays2D, trace_2d
 
 
 def phase_tables(traced: TracedRays, nlegendre: int) -> np.ndarray:
@@ -253,3 +263,186 @@ def occultation_radiance(extinction, traced: TracedRays):
     od = optical_depth(extinction, traced)
     not_ground = 1.0 - _const(traced.ground_hit, extinction)
     return torch.exp(-od) * not_ground
+
+
+# ---------------------------------------------------------------------------
+# 2D geometry (``sasktran2_tpu/rt/singlescatter.py:326-450``)
+# ---------------------------------------------------------------------------
+
+# the 2D traces of this process, most recently used last: the host tracer
+# walks every boundary's solar path in Python (about 0.45 s per ray at
+# 101 altitudes x 41 angles), and engines of one geometry in float32 and
+# float64 share one trace
+_TRACE_2D_CACHE: OrderedDict = OrderedDict()
+TRACE_2D_CACHE_SIZE = 4
+
+
+def _ray_key(ray):
+    return (type(ray).__name__, tuple(sorted(vars(ray).items())))
+
+
+def traced_2d(altitude_grid_m, horizontal_angles, earth_radius_m,
+              cos_sza_ref, rays, refractive_index=None,
+              los_refraction=False) -> TracedRays2D:
+    """``raytrace2d.trace_2d``, memoised within the process on its
+    arguments (the grids' and the refractive index's bytes, the earth
+    radius, the reference cos_sza, each ray's class and fields, the
+    refraction flag). The memo keeps the ``TRACE_2D_CACHE_SIZE`` most
+    recently used traces."""
+    def as_bytes(a):
+        return (None if a is None
+                else np.ascontiguousarray(a, dtype=np.float64).tobytes())
+
+    key = (as_bytes(altitude_grid_m), as_bytes(horizontal_angles),
+           float(earth_radius_m), float(cos_sza_ref),
+           tuple(_ray_key(r) for r in rays),
+           as_bytes(refractive_index), bool(los_refraction))
+    return bounded_memo(
+        _TRACE_2D_CACHE, key,
+        lambda: trace_2d(
+            altitude_grid_m, horizontal_angles, earth_radius_m, cos_sza_ref,
+            rays, refractive_index=refractive_index,
+            los_refraction=los_refraction,
+        ),
+        TRACE_2D_CACHE_SIZE,
+    )
+
+
+class Rays2D:
+    """The tables of a ``TracedRays2D`` as sparse operators on the
+    location axis, built on the host once and kept per (device, dtype):
+
+    * ``od`` [R S, nloc]: segment optical depth weights (od_idx, od_w)
+    * ``sun`` [R (S+1), nloc]: the optical depth to the sun at each
+      boundary (sun_idx, sun_w; a boundary shadowed by the ground holds
+      one weight of 1e10)
+    * ``interp`` [R (S+1), nloc]: the bilinear interpolation of a level
+      quantity onto each boundary (interp_idx, interp_w)
+
+    and the dense per-ray tables (lengths, mask, ground_hit)."""
+
+    def __init__(self, traced2d: TracedRays2D):
+        self.traced = traced2d
+        R, S, _ = traced2d.od_idx.shape
+        self.shape = (R, S)
+        nloc = traced2d.nloc
+
+        def entries(idx, w):
+            rows = np.repeat(np.arange(idx.shape[0] * idx.shape[1]),
+                             idx.shape[2])
+            return (rows, idx.ravel(), w.ravel(),
+                    (idx.shape[0] * idx.shape[1], nloc))
+
+        self._entries = {
+            "od": entries(traced2d.od_idx, traced2d.od_w),
+            "sun": entries(traced2d.sun_idx, traced2d.sun_w),
+            "interp": entries(traced2d.interp_idx, traced2d.interp_w),
+        }
+        self._on = LazyTables()
+
+    def on(self, device, dtype) -> dict:
+        """The operators and dense tables on ``device`` in ``dtype``,
+        built at the first request."""
+        device = torch.device(device)
+
+        def build():
+            ops = {k: SparseOp(*v, device, dtype)
+                   for k, v in self._entries.items()}
+            for k in ("lengths", "mask", "ground_hit"):
+                ops[k] = torch.as_tensor(
+                    np.asarray(getattr(self.traced, k), dtype=np.float64),
+                    dtype=dtype, device=device)
+            return ops
+
+        return self._on.get((device, dtype), build)
+
+
+def _gather2d(op, x, rows):
+    """``op`` [R rows, nloc] applied to the location axis of x [W, nloc]
+    (or [W, nloc, L]): [W, R, rows] (or [W, R, rows, L])."""
+    W, nloc = x.shape[:2]
+    tail = x.shape[2:]
+    flat = x.reshape(W, nloc, -1).permute(1, 0, 2).reshape(nloc, -1)
+    y = apply_sparse(flat, op)                      # [R rows, W (L)]
+    y = y.reshape(-1, rows, W, *tail)
+    return y.movedim(2, 0)
+
+
+def _segment_od_2d(ext, rays, ops):
+    """Masked segment optical depths max(od, 0) * mask, [W, R, S]."""
+    R, S = rays.shape
+    seg_od = _gather2d(ops["od"], ext, S)
+    return torch.clamp(seg_od, min=0.0) * ops["mask"]
+
+
+def _blend_2d(od, j_b, ops):
+    """The endpoint-blended constant-source model along the 2D rays:
+    sum_s (1 - e^-od)/od (J_in + J_out)/2 ds exp(-closer od), [W, R]."""
+    seg_src = (_source_factor(od) * 0.5 * (j_b[..., :-1] + j_b[..., 1:])
+               * ops["lengths"] * ops["mask"])
+    return torch.sum(seg_src * torch.exp(-_closer_od(od)), dim=-1)
+
+
+def integrate_single_scatter_2d(extinction, ssa, leg_coeff, rays,
+                                phase_tab):
+    """Sun-normalized single scatter along the rays of a 2D atmosphere,
+    [W, R] (``sasktran2_tpu/rt/singlescatter.py:326``).
+
+    extinction/ssa [W, nloc] on the flattened (angle, altitude) grid,
+    leg_coeff [W, nloc, L]; ``rays`` the trace's ``Rays2D``; ``phase_tab`` [R, S+1, L], P_l(cos Theta) at the
+    boundaries."""
+    ops = rays.on(extinction.device, extinction.dtype)
+    R, S = rays.shape
+    pt = _const(phase_tab, extinction)
+
+    od = _segment_od_2d(extinction, rays, ops)
+    sun_od = _gather2d(ops["sun"], extinction, S + 1)
+    t_sun = torch.exp(-torch.clamp(sun_od, max=300.0))
+
+    kscat = extinction * ssa
+    kscat_b = _gather2d(ops["interp"], kscat, S + 1)
+    beta_num = _gather2d(ops["interp"], leg_coeff * kscat[..., None], S + 1)
+    denom = kscat_b[..., None]
+    ok = denom > 0.0
+    beta_b = torch.where(
+        ok, beta_num / torch.where(ok, denom, torch.ones_like(denom)),
+        torch.zeros_like(beta_num),
+    )
+    phase_b = torch.einsum("wrbl,rbl->wrb", beta_b, pt)
+    j_b = kscat_b * phase_b / (4.0 * math.pi) * t_sun
+    return _blend_2d(od, j_b, ops)
+
+
+def emission_radiance_2d(extinction, ssa, emission, rays):
+    """Standard (thermal) emission along the rays of a 2D atmosphere,
+    [W, R] (``singlescatter.py:380``): J = k_abs B at the boundaries, the
+    endpoint-blended model, attenuated by the closer segments.
+    extinction/ssa/emission [W, nloc]."""
+    ops = rays.on(extinction.device, extinction.dtype)
+    S = rays.shape[1]
+    od = _segment_od_2d(extinction, rays, ops)
+    k_b = _gather2d(ops["interp"], extinction, S + 1)
+    kscat_b = _gather2d(ops["interp"], extinction * ssa, S + 1)
+    b_b = _gather2d(ops["interp"], emission, S + 1)
+    return _blend_2d(od, (k_b - kscat_b) * b_b, ops)
+
+
+def ver_emission_radiance_2d(extinction, emission, rays):
+    """Volume-emission-rate emission along the rays of a 2D atmosphere,
+    [W, R] (``singlescatter.py:425``): each segment adds its length times
+    the mean of its boundary rates, attenuated by the closer segments."""
+    ops = rays.on(extinction.device, extinction.dtype)
+    S = rays.shape[1]
+    od = _segment_od_2d(extinction, rays, ops)
+    e_b = _gather2d(ops["interp"], emission, S + 1)
+    seg_src = (0.5 * (e_b[..., :-1] + e_b[..., 1:]) * ops["lengths"]
+               * ops["mask"])
+    return torch.sum(seg_src * torch.exp(-_closer_od(od)), dim=-1)
+
+
+def optical_depth_2d(extinction, rays):
+    """Total line-of-sight optical depth of every 2D ray, [W, R]
+    (``singlescatter.py:443``)."""
+    ops = rays.on(extinction.device, extinction.dtype)
+    seg_od = _gather2d(ops["od"], extinction, rays.shape[1])
+    return torch.sum(seg_od * ops["mask"], dim=-1)

@@ -33,14 +33,16 @@ of the sums differs.
 from __future__ import annotations
 
 import math
-import warnings
 from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..memo import bounded_memo
+from ..ops import _build
 from ..ops.quadrature import gauss_legendre
+from ..ops.sparse import SparseOp, apply_sparse
 from ..ops.wigner import legendre_p
 from ..util.torchmath import safe_div
 from .raytrace import TracedRays, _solar_at_point, _sun_od_weights
@@ -499,70 +501,20 @@ def so_geometry(
         alts.tobytes(), float(earth_radius_m), float(cos_sza), int(nleg),
         int(n_mu), int(n_phi), bool(ms_refraction), n_bytes,
     )
-    geom = _GEOMETRY_CACHE.pop(key, None)
-    if geom is None:
-        geom = build_so_geometry(
+    return bounded_memo(
+        _GEOMETRY_CACHE, key,
+        lambda: build_so_geometry(
             altitude_grid_m, earth_radius_m, cos_sza, nleg, n_mu=n_mu,
             n_phi=n_phi, refractive_index=refractive_index,
             ms_refraction=ms_refraction,
-        )
-    _GEOMETRY_CACHE[key] = geom
-    while len(_GEOMETRY_CACHE) > GEOMETRY_CACHE_SIZE:
-        _GEOMETRY_CACHE.popitem(last=False)
-    return geom
+        ),
+        GEOMETRY_CACHE_SIZE,
+    )
 
 
 # ---------------------------------------------------------------------------
 # Compact transport plan (host) and its sparse operators (device)
 # ---------------------------------------------------------------------------
-
-
-def _csr(rows, cols, vals, shape):
-    """(crow, col, val) of the CSR matrix of ``shape`` with the given
-    entries; repeated (row, col) entries are summed, exact zeros dropped."""
-    rows = np.asarray(rows, dtype=np.int64).ravel()
-    cols = np.asarray(cols, dtype=np.int64).ravel()
-    vals = np.asarray(vals, dtype=np.float64).ravel()
-    keep = vals != 0.0
-    rows, cols, vals = rows[keep], cols[keep], vals[keep]
-    key = rows * shape[1] + cols
-    order = np.argsort(key, kind="stable")
-    key, vals = key[order], vals[order]
-    uniq, start = np.unique(key, return_index=True)
-    val = np.add.reduceat(vals, start) if len(vals) else vals
-    r = uniq // shape[1]
-    crow = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=shape[0]))])
-    return crow, uniq % shape[1], val, shape
-
-
-class _SparseOp:
-    """A static matrix and its transpose as torch CSR tensors."""
-
-    def __init__(self, rows, cols, vals, shape, device, dtype):
-        def tensor(crow, col, val, shp):
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                return torch.sparse_csr_tensor(
-                    torch.as_tensor(crow, dtype=torch.int32),
-                    torch.as_tensor(col, dtype=torch.int32),
-                    torch.as_tensor(val, dtype=dtype), size=shp,
-                ).to(device)
-
-        self.m = tensor(*_csr(rows, cols, vals, shape))
-        self.mt = tensor(*_csr(cols, rows, vals, shape[::-1]))
-
-
-class _Apply(torch.autograd.Function):
-    """y = M x for a static sparse M and dense x [K, N]."""
-
-    @staticmethod
-    def forward(ctx, x, op):
-        ctx.op = op
-        return op.m @ x.contiguous()
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.op.mt @ grad.contiguous(), None
 
 
 class _Transport(torch.autograd.Function):
@@ -677,7 +629,7 @@ class TransportPlan:
                                device=self.device)
 
     def _op(self, entries):
-        return _SparseOp(*entries, self.device, self.dtype)
+        return SparseOp(*entries, self.device, self.dtype)
 
     def _entries(self, name):
         geom, nseg, A = self.geom, self.nseg, self.V
@@ -731,7 +683,7 @@ class TransportPlan:
 
     def apply(self, name, x):
         """The operator ``name`` times x [K, N]."""
-        return _Apply.apply(x, self.ops[name])
+        return apply_sparse(x, self.ops[name])
 
 
 def _check_nleg(plan: TransportPlan, leg):
@@ -787,7 +739,8 @@ def transport_step(plan: TransportPlan, j, c):
     """One transport of the source J [R, n W] with segment factors
     C [nseg, W]: [R, n W]. ``transport_step.calls`` counts the steps
     (forward passes)."""
-    transport_step.calls += 1
+    with _build.COUNT_LOCK:
+        transport_step.calls += 1
     return _Transport.apply(j, c, plan.ops["stencil"], plan.ops["raysum"],
                             plan.index["seg_ray"])
 

@@ -153,6 +153,21 @@ The host-side slice's cells:
   that DOAS trace-gas retrievals ask for, which they run in float64 (in
   float32 the AMF is ill-conditioned and the engine warns).
 
+The 2D cell:
+
+* ``tomo2d_case``: tomographic limb retrievals along the orbit track
+  (OSIRIS, OMPS-LP and ALTIUS ozone and aerosol), which need horizontal
+  gradients: a ``Geometry2D`` of 101 altitudes (0-100 km) by 41
+  horizontal angles (-20 to 20 degrees), 40 ``TangentAltitude`` rays (4
+  images at -6, -2, 2 and 6 degrees, 10 tangent altitudes each from 10
+  to 55 km, observer at 600 km), exact single scatter, 64 wavelengths on
+  280-800 nm, with Jacobians. Cut from operational tomography's about 100
+  images per orbit at 1-2 km vertical sampling to 4 images at 5 km, for
+  the host 2D tracer's time (about 0.4 s per ray); its absorber's cross
+  section is synthetic (``tomo2d_cross_section``). The golden file holds
+  its ``wf_*`` (each [4,141, W, 40, 1]) at the two wavelengths of
+  ``TOMO2D_WF_POSITIONS`` only.
+
 ``POL16_SOLVER_*`` is the solver-level case of the 16-stream polarized
 check: the JAX package cannot compile its polarized engine at 16 streams
 on the CPU, so ``tools/make_torch_golden.py`` stores the inputs and
@@ -232,6 +247,17 @@ DAYGLOW_O3_M3 = 1.0e14
 DAYGLOW_CO2_M3 = 6.0e17
 DAYGLOW_MONTH = 7.0
 AMF16_BACKGROUND_M1 = 5e-7
+# the 2D cell
+GOLDEN_TOMO2D_PATH = os.path.join(DATA, "golden_tomo2d.npz")
+TOMO2D_NUM_ALTITUDES = 101
+TOMO2D_ANGLES_DEG = np.arange(-20.0, 20.1, 1.0)
+TOMO2D_IMAGE_ANGLES_DEG = (-6.0, -2.0, 2.0, 6.0)
+TOMO2D_TANGENTS_M = np.arange(10000.0, 55001.0, 5000.0)
+TOMO2D_OBSERVER_M = 600000.0
+# the golden file's wavelengths (``SO_GOLDEN_INDICES`` of the 64-point
+# grid) and, among them, the two at which it holds every ``wf_*``: 280 nm
+# in the absorber's UV band and 577 nm in its visible one
+TOMO2D_WF_POSITIONS = np.array([0, 4])
 POL16_SOLVER_AZIMUTH = 0.5
 POL16_SOLVER_NUM_AZIMUTH = 3
 
@@ -871,6 +897,77 @@ def amf16_case(sk, dtype: str, wavelengths_nm):
     return config, geometry, viewing, atmo
 
 
+def tomo2d_case(sk, dtype: str, wavelengths_nm,
+                num_altitudes=TOMO2D_NUM_ALTITUDES,
+                angles_deg=TOMO2D_ANGLES_DEG):
+    """(config, geometry, viewing, atmosphere) of the 2D tomographic limb
+    cell, built from ``sk`` as ``smoke_case`` is: a ``Geometry2D`` of
+    ``num_altitudes`` altitudes from 0 to 100 km by ``angles_deg``
+    horizontal angles (cos_sza 0.6 at angle 0, the sun in the plane); 40
+    ``TangentAltitude`` rays, 4 images at -6, -2, 2 and 6 degrees of 10
+    tangent altitudes each (10-55 km, observer at 600 km); exact single
+    scatter with 16 moments, no multiple scatter, the line-of-sight
+    optical depth, full Jacobians; US76 pressure and temperature tiled
+    over the angles with ``Rayleigh``, a ``NumberDensityScatterer2D``
+    Henyey-Greenstein aerosol (xs 1e-13 m^2, ssa 0.95, g 0.7) peaking at
+    20 km and growing twofold across the angles, and a ``VMRAbsorber2D``
+    ozone-like absorber (an 8 ppm layer at 25 km, 0.8-1.2 across the
+    angles) of a synthetic tabulated cross section with a UV and a
+    visible band."""
+    config = sk.Config(
+        single_scatter_source=sk.SingleScatterSource.Exact,
+        multiple_scatter_source=sk.MultipleScatterSource.NoSource,
+        num_singlescatter_moments=16,
+        output_los_optical_depth=True,
+        dtype=dtype,
+    )
+    alts = np.linspace(0.0, 100000.0, num_altitudes)
+    nh = len(angles_deg)
+    geometry = sk.Geometry2D(
+        cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
+        altitude_grid_m=alts,
+        horizontal_angle_grid_radians=np.deg2rad(angles_deg),
+    )
+    viewing = sk.ViewingGeometry()
+    for image in TOMO2D_IMAGE_ANGLES_DEG:
+        for talt in TOMO2D_TANGENTS_M:
+            viewing.add_ray(sk.TangentAltitude(
+                tangent_altitude_m=float(talt),
+                observer_altitude_m=TOMO2D_OBSERVER_M,
+                horizontal_angle_radians=float(np.deg2rad(image)),
+                viewing_azimuth_radians=0.0,
+            ))
+    atmo = sk.Atmosphere(geometry, config, wavelengths_nm=wavelengths_nm)
+    sk.climatology.us76.add_us76_standard_atmosphere(atmo)
+    # Rayleigh on a 2D grid reads pressure and temperature per location
+    atmo.pressure_pa = np.tile(atmo.pressure_pa, nh)
+    atmo.temperature_k = np.tile(atmo.temperature_k, nh)
+    atmo["rayleigh"] = sk.constituent.Rayleigh()
+    gauss = 1e6 * np.exp(-(((alts - 20000.0) / 8000.0) ** 2)) + 1.0
+    atmo["aero"] = sk.constituent.NumberDensityScatterer2D(
+        sk.constituent.HGScatteringOptical(
+            xs_total=1e-13, ssa=0.95, g=0.7, nleg=16),
+        np.outer(np.linspace(1.0, 2.0, nh), gauss),
+    )
+    xs_wl, xs = tomo2d_cross_section()
+    atmo["ozone"] = sk.constituent.VMRAbsorber2D(
+        sk.optical.TabulatedCrossSectionAbsorber(xs_wl, xs),
+        np.outer(np.linspace(0.8, 1.2, nh),
+                 8e-6 * np.exp(-(((alts - 25000.0) / 7000.0) ** 2))),
+    )
+    return config, geometry, viewing, atmo
+
+
+def tomo2d_cross_section():
+    """(wavelengths_nm, cross_section_m2) of tomo2d's absorber, on
+    250-850 nm every 1 nm: 5e-25 exp(-((wl - 600) / 60)^2) + 1e-22
+    exp(-((wl - 255) / 20)^2), a visible and a UV band (no ozone file is
+    in the repository)."""
+    wl = np.arange(250.0, 850.5, 1.0)
+    return wl, (5e-25 * np.exp(-(((wl - 600.0) / 60.0) ** 2))
+                + 1e-22 * np.exp(-(((wl - 255.0) / 20.0) ** 2)))
+
+
 def golden_error(name, got, ref, stokes_axis=-1, qu_scale="own"):
     """The error of ``got`` against the golden ``ref`` by which a case is
     gated: for ``radiance`` and the ``*_flux`` variables the largest error
@@ -880,6 +977,7 @@ def golden_error(name, got, ref, stokes_axis=-1, qu_scale="own"):
     itself; for ``wf_*`` and gradients the largest error relative to the
     variable's largest magnitude. Where the reference is exactly zero (the
     divergence flux of a conservative atmosphere) the error is absolute.
+    The line-of-sight optical depth is gated per element, as radiance.
     ``qu_scale="I"`` holds Q and U to the largest |I| instead, for a case
     whose polarization is only a trace (thermal emission with the sun
     off)."""
@@ -890,7 +988,7 @@ def golden_error(name, got, ref, stokes_axis=-1, qu_scale="own"):
     def nonzero(x):
         return np.where(x > 0.0, x, 1.0)
 
-    per_element = name == "radiance" or (
+    per_element = name in ("radiance", "los_optical_depth") or (
         name.endswith("_flux") and not name.startswith("wf_"))
     if name == "radiance" and ref.shape[stokes_axis] == 3:
         i_err = np.take(err, 0, stokes_axis) / nonzero(

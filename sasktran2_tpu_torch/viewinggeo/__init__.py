@@ -7,14 +7,15 @@ policy resolves — given the model geometry — to an *observer ray* descriptio
 relative solar azimuth, and per-ray cos-SZA) that the host-side ray tracer
 consumes to produce static traced-ray tables.
 
-(Copy of ``sasktran2_tpu/viewinggeo/__init__.py`` for the PyTorch port,
-without ``TangentAltitude``, the 2D geometry's ray (ROADMAP Queue 1
-item 8). The ``ViewingGeometryContainer`` family is in ``containers.py``.)
+(Copy of ``sasktran2_tpu/viewinggeo/__init__.py`` for the PyTorch port;
+``tests/test_torch_host_copies.py`` pins it to the original.)
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
 
 
 class ViewingGeometry:
@@ -52,6 +53,16 @@ class TangentAltitudeSolar:
     relative_azimuth: float
     observer_altitude_m: float
     cos_sza: float
+
+
+@dataclass
+class TangentAltitude:
+    """Geometry-relative limb ray (reference ``wrappers.py:126``)."""
+
+    tangent_altitude_m: float
+    observer_altitude_m: float
+    horizontal_angle_radians: float = 0.0
+    viewing_azimuth_radians: float = 0.0
 
 
 @dataclass
@@ -96,6 +107,7 @@ __all__ = [
     "GroundViewingSolar",
     "LimbVertical",
     "SolarAnglesObserverLocation",
+    "TangentAltitude",
     "TangentAltitudeSolar",
     "ViewingGeometry",
     "ViewingGeometryContainer",

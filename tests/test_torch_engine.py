@@ -12,7 +12,8 @@ observers, a BRDF on a limb scan, polarized BRDF) take the port's generic
 route too and match at 1e-10; so do successive orders, scalar and
 polarized; EngineIntegratedLineShape runs; a viewing geometry
 that is not the port's raises ``TypeError`` and a ray of the 2D geometry's
-kind ``NotImplementedError``; an engine with no
+kind on a ``Geometry1D`` ``NotImplementedError``, as the JAX 1D tracer
+cannot trace it either; an engine with no
 device named needs a GPU. The JAX engine's side of each case is read from
 ``sasktran2_tpu_torch/data/golden_test_torch_engine.npz``
 (``tests/torch_support.py``)."""
@@ -155,7 +156,7 @@ class _RayList:
 
 class _TangentAltitude:
     """A ray of the 2D geometry's kind (``sasktran2_tpu.TangentAltitude``),
-    which the port does not take yet."""
+    which a ``Geometry1D`` does not trace."""
 
     tangent_altitude_m = 20000.0
     observer_altitude_m = 200000.0
@@ -172,7 +173,7 @@ def _viewing_with(ray):
      lambda: _RayList(_ground_viewing().observer_rays), TypeError,
      "sasktran2_tpu_torch.ViewingGeometry.*_RayList"),
     (lambda: _config(skt), lambda: _viewing_with(_TangentAltitude()),
-     NotImplementedError, "_TangentAltitude.*Queue 1 item 8"),
+     NotImplementedError, "_TangentAltitude.*Geometry1D.*Geometry2D"),
 ])
 def test_out_of_slice_raises(config, viewing, error, match):
     geometry = _geometry(skt, "PlaneParallel")

@@ -7,7 +7,10 @@ rotations and flux-observer interpolation, the stream quadrature and
 associated Legendre tables, ``Config``, the US76 + Rayleigh + Lambertian
 atmosphere, the BRDF, thermal and volume-emission constituents, the
 VMR absorber with its tabulated cross sections and the Planck function,
-and ``params.atmosphere_from_reference`` (a BRDF surface included).
+and ``params.atmosphere_from_reference`` (a BRDF surface included); the
+verbatim copies (``VERBATIM_COPIES``: among them the 2D geometry, its
+ray and its tracer, and the VMR absorbers) and the 2D scatterer
+classes.
 The geometries are the 16-stream slice's (cut to 20 altitudes), both cases
 of ``tests/test_torch_engine.py`` and a spherical limb scan with a
 ground-viewing ray; each side builds its objects with its own package from
@@ -548,7 +551,8 @@ VERBATIM_COPIES = [
     "photchem/emission.py", "constituent/misc.py",
     "climatology/atomic_oxygen.py", "climatology/glossac.py",
     "climatology/mipas.py", "optical/refraction.py", "optical/named.py",
-    "optical/baum.py",
+    "optical/baum.py", "geometry.py", "viewinggeo/__init__.py",
+    "rt/raytrace2d.py", "constituent/vmr_absorber.py",
 ]
 
 
@@ -557,7 +561,7 @@ def _copy_of(text, rel):
     (one line of summary where it has none) gains the copy note, and the
     reference path it gives on its own machine names the upstream source
     instead."""
-    text = re.sub(r"``/\w+/reference/src/", "``upstream SASKTRAN2 src/", text)
+    text = re.sub(r"``/\w+/reference/", "``upstream SASKTRAN2 ", text)
     if not text.startswith('"""'):
         text = ('"""Solar irradiance model and solar-angle handlers."""\n\n'
                 + text)
@@ -575,6 +579,21 @@ def test_verbatim_copies_equal(rel):
     got = (repo / "sasktran2_tpu_torch" / rel).read_text()
     ref = (repo / "sasktran2_tpu" / rel).read_text()
     assert got == _copy_of(ref, rel)
+
+
+@pytest.mark.parametrize("name", ["NumberDensityScatterer2D",
+                                  "ExtinctionScatterer2D"])
+def test_2d_scatterer_classes_equal(name):
+    """The native-grid 2D scatterers are copied class by class into the
+    port's ``constituent/scatterer.py`` (whose Mie optical property runs
+    on the device, so the module is not a verbatim copy)."""
+    import inspect
+
+    from sasktran2_tpu.constituent import scatterer as scatterer_ref
+    from sasktran2_tpu_torch.constituent import scatterer as scatterer_port
+
+    assert (inspect.getsource(getattr(scatterer_port, name))
+            == inspect.getsource(getattr(scatterer_ref, name)))
 
 
 def test_atomic_oxygen_table_equal():

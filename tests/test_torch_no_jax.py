@@ -11,7 +11,9 @@ BRDF and flux observers, which takes the generic per-wavelength route;
 or successive orders; or EngineIntegratedLineShape over a line-by-line
 absorber and an aerosol from a Mie table generated on the CPU; or a small
 O2 A-band dayglow limb scan from a ``LimbVertical`` container, with a
-HITRAN line file and Yankovsky airglow), and check that neither ``jax``
+HITRAN line file and Yankovsky airglow; or a small 2D tomographic limb
+scan, traced by ``rt/raytrace2d.py``, its wavelengths split over two CPU
+blocks by ``mesh=``), and check that neither ``jax``
 nor any ``sasktran2_tpu`` module, nor ``pandas``, is in ``sys.modules``
 and that the host ray tracer was built inside the port. A static pass
 parses every module of the port, and ``chip_smoke.py``, for such imports,
@@ -41,6 +43,24 @@ SCRIPT = textwrap.dedent("""
     from sasktran2_tpu_torch import native
 
     case = sys.argv[1]
+    if case == "2d_mesh":
+        from sasktran2_tpu_torch import scenarios
+        from sasktran2_tpu_torch.parallel import make_mesh
+        config, geometry, viewing, atmo = scenarios.tomo2d_case(
+            sk, "float64", [350.0, 600.0], num_altitudes=11,
+            angles_deg=np.linspace(-20.0, 20.0, 5))
+        engine = sk.Engine(config, geometry, viewing, device="cpu")
+        out = engine.calculate_radiance(
+            atmo, mesh=make_mesh(devices=["cpu", "cpu"]))
+        rad = out["radiance"].to_numpy()
+        assert rad.shape == (2, 40, 1) and np.all(rad > 0), rad
+        assert "wf_ozone" in out and "los_optical_depth" in out
+        print(engine.ray_tracer)
+        print(sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "sasktran2_tpu", "pandas")
+        ))
+        sys.exit(0)
     if case == "airglow":
         # a small O2 A-band dayglow limb scan from a LimbVertical container,
         # its O2 lines read by HITRANLineDatabase from a file written under
@@ -201,7 +221,7 @@ SCRIPT = textwrap.dedent("""
 
 @pytest.mark.parametrize("case", ["scalar", "polarized", "flux", "brdf",
                                   "thermal", "generic", "so", "optical",
-                                  "airglow"])
+                                  "airglow", "2d_mesh"])
 def test_port_never_imports_jax(case):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -211,7 +231,7 @@ def test_port_never_imports_jax(case):
     )
     assert proc.returncode == 0, proc.stderr
     tracer, imported = proc.stdout.strip().splitlines()[-2:]
-    assert tracer in ("native C++", "numpy")
+    assert tracer in ("native C++", "numpy", "numpy 2D")
     assert imported == "[]"
 
 

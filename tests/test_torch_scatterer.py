@@ -26,7 +26,9 @@ extinction and ssa terms of the chain cancel, and the two JAX routes
 differ there by more than 1e-10.
 
 Each package builds its own atmosphere from the same numpy inputs. The
-2D scatterers raise ``NotImplementedError`` naming ROADMAP Queue 1 item 8.
+2D scatterers refuse a 1D atmosphere and a field of another shape than
+the 2D geometry's, as the JAX package's do
+(``tests/test_torch_constituents2d.py`` holds them on a 2D one).
 The JAX side is read from
 ``sasktran2_tpu_torch/data/golden_test_torch_scatterer.npz``
 (``tests/torch_support.py``)."""
@@ -173,5 +175,20 @@ class _Without:
 @pytest.mark.parametrize("name", ["NumberDensityScatterer2D",
                                   "ExtinctionScatterer2D"])
 def test_2d_scatterers_refused(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        getattr(skt.constituent, name)(None, np.ones((2, 3)), 500.0)
+    for pkg in (sk, skt):
+        optical = pkg.constituent.HGScatteringOptical(1e-13, 0.9, 0.5, nleg=4)
+        extra = (500.0,) if name == "ExtinctionScatterer2D" else ()
+        config = pkg.Config(num_streams=4)
+        geometries = (
+            (pkg.Geometry1D(0.6, 0.0, 6372000.0, np.linspace(0.0, 1e5, 3)),
+             TypeError, "requires an atmosphere using Geometry2D"),
+            (pkg.Geometry2D(0.6, 0.0, 6372000.0, np.linspace(0.0, 1e5, 4),
+                            np.linspace(-0.2, 0.2, 2)),
+             ValueError, r"shape does not match the atmosphere: \(2, 3\)"),
+        )
+        for geometry, error, match in geometries:
+            atmo = pkg.Atmosphere(geometry, config, wavelengths_nm=[500.0])
+            atmo["aero"] = getattr(pkg.constituent, name)(
+                optical, np.ones((2, 3)), *extra)
+            with pytest.raises(error, match=match):
+                atmo.internal_object()

@@ -17,8 +17,9 @@ JAX package's, in float64 on the CPU.
 * The port's EngineIntegratedLineShape outputs equal the mapping matrix
   applied to its Monochromatic outputs on the same fine grid, as
   ``tests/test_spectral_grid_mode.py:78-120`` checks for the JAX package.
-* What the port still refuses: 2D atmosphere storage, ``mesh=`` and
-  viewing-geometry containers, each naming its ROADMAP item.
+* What the port refuses: a viewing geometry or a ``mesh=`` that is not
+  the port's own (``TypeError``); an atmosphere on a geometry with a
+  horizontal axis that is not a ``Geometry2D`` is a 1D one.
 
 The JAX side is read from
 ``sasktran2_tpu_torch/data/golden_test_torch_spectral_grid.npz``
@@ -178,11 +179,10 @@ def test_basis_equal():
             getattr(basis_ref, cls)(*args).evaluate(x))
 
 
-class _Geometry2D:
-    """A geometry with a horizontal axis, as a 2D geometry has."""
+class _Geometry2D(skt.Geometry1D):
+    """A 1D geometry with a horizontal axis, as a 2D geometry has."""
 
     num_horizontal = 3
-    num_altitudes = 6
 
 
 class _RayList:
@@ -195,10 +195,12 @@ class _RayList:
 def test_remaining_refusals():
     config, geometry, viewing, atmo = _case(skt, "Monochromatic",
                                             "wavenumber", output_basis=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        skt.Atmosphere(_Geometry2D(), config, wavelengths_nm=[500.0])
+    # the storage's rows follow the JAX package's test: Geometry2D or not
+    fake = _Geometry2D(0.6, 0.0, 6372000.0, geometry.altitudes())
+    rows = skt.Atmosphere(fake, config, wavelengths_nm=[500.0]).storage
+    assert rows.total_extinction.shape[0] == geometry.num_altitudes
     engine = skt.Engine(config, geometry, viewing, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9, multi-GPU"):
+    with pytest.raises(TypeError, match="sasktran2_tpu_torch.parallel.Mesh"):
         engine.calculate_radiance(atmo, mesh=object())
     with pytest.raises(TypeError, match="sasktran2_tpu_torch.ViewingGeometry"):
         skt.Engine(config, geometry, _RayList(viewing.observer_rays),

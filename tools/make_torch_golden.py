@@ -18,7 +18,7 @@ independent in this model, so 8 wavelengths taken from a case's
 1024-point grid give the same values as the full grid. Runs the JAX
 engine on the CPU in float64:
 
-    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|polsolimb16|pol16_solver|o2a16|dayglowlimb16|amf16|tests|all] [--tests MODULE,...]
+    python tools/make_torch_golden.py [--case nstr16|limb16|2str|flux16|pol4|brdf16|thermal16|thermallimb16|polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|polsolimb16|pol16_solver|o2a16|dayglowlimb16|amf16|tomo2d|tests|all] [--tests MODULE,...]
 
 and writes ``sasktran2_tpu_torch/data/golden_<case>.npz`` with the
 wavelength indices, the wavelengths, ``radiance``, the ``*_flux``
@@ -46,6 +46,12 @@ package. ``amf16`` is ``amf16_case`` (``amf16_golden``: its
 ``air_mass_factor`` beside the radiance and the ``wf_*``, with the JAX
 package's own float32 error at each level, below 60 km and on the whole
 column, the difference between its two routes, and its route).
+
+``tomo2d`` is the 2D tomographic limb cell (``tomo2d_case``,
+``tomo2d_golden``): the JAX engine in float64 and float32 at the 8
+wavelengths ``SO_GOLDEN_INDICES`` of its 64-point grid, with radiance and
+``los_optical_depth`` at all 8 and every ``wf_*`` (each [4,141, W, 40, 1])
+at the two of them in ``TOMO2D_WF_POSITIONS``, to keep the file small.
 
 ``tests`` runs the port's CPU test modules of ``TEST_MODULES`` (or those
 given by ``--tests``) in record mode (``tests/torch_support.py``): each
@@ -115,7 +121,8 @@ def main():
     }
     parser.add_argument("--case",
                         choices=[*cases, *so_cases, "pol16_solver", "o2a16",
-                                 "dayglowlimb16", "amf16", "tests", "all"],
+                                 "dayglowlimb16", "amf16", "tomo2d", "tests",
+                                 "all"],
                         default="all")
     parser.add_argument("--tests", default=None,
                         help="with --case tests: the comma-separated test "
@@ -170,6 +177,8 @@ def main():
         save(scenarios.GOLDEN_DAYGLOWLIMB16_PATH, dayglowlimb16_golden(sk))
     if args.case in ("amf16", "all"):
         save(scenarios.GOLDEN_AMF16_PATH, amf16_golden(sk, solar()[idx], idx))
+    if args.case in ("tomo2d", "all"):
+        save(scenarios.GOLDEN_TOMO2D_PATH, tomo2d_golden(sk))
     if args.case in ("tests", "all"):
         t0 = time.perf_counter()
         record_test_goldens(args.tests.split(",") if args.tests else None)
@@ -559,6 +568,47 @@ def amf16_golden(sk, wl, idx):
     return out
 
 
+def tomo2d_golden(sk):
+    """The tomo2d cell's golden values: the JAX engine in float64 at the
+    8 wavelengths ``SO_GOLDEN_INDICES`` of its grid (radiance and
+    ``los_optical_depth`` at all 8, every ``wf_*`` at the wavelengths
+    ``TOMO2D_WF_POSITIONS`` among them), and beside each the JAX
+    package's own float32 error on the same values
+    (``jax_f32_err_<name>``)."""
+    import jax
+
+    from sasktran2_tpu_torch import scenarios as sc
+
+    idx = sc.SO_GOLDEN_INDICES
+    wl = sc.so_wavelengths()[idx]
+    pos = sc.TOMO2D_WF_POSITIONS
+    runs = {}
+    for dtype in ("float32", "float64"):
+        jax.config.update("jax_enable_x64", dtype == "float64")
+        config, geometry, viewing, atmo = sc.tomo2d_case(sk, dtype, wl)
+        t0 = time.perf_counter()
+        engine = sk.Engine(config, geometry, viewing)
+        print(f"tomo2d: JAX engine constructor (2D trace) "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out = engine.calculate_radiance(atmo)
+        print(f"tomo2d: JAX {dtype} engine call on the CPU (compile "
+              f"included): {time.perf_counter() - t0:.1f} s", flush=True)
+        runs[dtype] = {}
+        for k in out.keys():
+            if k in ("radiance", "los_optical_depth"):
+                runs[dtype][k] = out[k].to_numpy()
+            elif k.startswith("wf_"):
+                ax = out[k].dims.index("wavelength")
+                runs[dtype][k] = np.take(out[k].to_numpy(), pos, axis=ax)
+    out = {"indices": idx, "wavelengths_nm": wl, "wf_positions": pos,
+           **runs["float64"]}
+    for key, ref in runs["float64"].items():
+        out[f"jax_f32_err_{key}"] = sc.golden_error(
+            key, runs["float32"][key], ref)
+    return out
+
+
 def record_test_goldens(modules=None):
     """Run the port's CPU tests in record mode (``tests/torch_support.py``):
     every ``jax_reference`` computes its JAX side, and each test module's
@@ -584,14 +634,17 @@ def record_test_goldens(modules=None):
 # the test modules whose JAX side the tier-1 run reads from golden files
 TEST_MODULES = (
     "test_torch_brdf",
+    "test_torch_constituents2d",
     "test_torch_engine",
     "test_torch_flux",
     "test_torch_generic",
+    "test_torch_geometry2d",
     "test_torch_host_data",
     "test_torch_kernels",
     "test_torch_limb",
     "test_torch_lineemission",
     "test_torch_lineshape",
+    "test_torch_mesh",
     "test_torch_mie",
     "test_torch_misc_constituents",
     "test_torch_nstream",

@@ -3,7 +3,7 @@
     python tools/profile_torch_engine.py
         [--case ground|limb|2str|flux16|pol4|pol16|limbpol16|generic16|
                 polbrdf4|polflux4|polthermallimb4|solimb16|solimb16_doinit|
-                polsolimb16|o2a16]
+                polsolimb16|o2a16|tomo2d]
         [--trace engine_trace.json] [--tree PATH] [--time N]
 
 Builds the case of ``sasktran2_tpu_torch.scenarios`` (``ground``: the
@@ -17,8 +17,9 @@ by ``lambda: False``, and ``polbrdf4``, ``polflux4``,
 the successive-orders cells ``solimb16``, ``solimb16_doinit`` and
 ``polsolimb16`` on their 64-wavelength grid; the optical cell ``o2a16``
 on its 4,096 fine wavenumbers, EngineIntegratedLineShape, with its Mie
-table generated on the card into a temporary directory first) at
-W = 1024 in float32 on ``cuda:0``, warms up,
+table generated on the card into a temporary directory first; the 2D
+cell ``tomo2d`` on its 64 wavelengths) at W = 1024 in float32 on
+``cuda:0``, warms up,
 then profiles one ``calculate_radiance`` call with Jacobians and one
 without under ``torch.profiler``. For each it prints the wall time, the
 device time summed over kernels and copies, the device busy share (device
@@ -31,7 +32,12 @@ the kernel time launched inside that loop and its share of the call's
 device time, and the operators with the most self device time. Device
 time is kernel and copy time: the ``record_function`` span on the
 device's track is left out of every sum, since it also spans idle gaps. Then, without the profiler, one warm call with
-and one without Jacobians give the Jacobian rows' share of the call.
+and one without Jacobians give the Jacobian rows' share of the call, and
+split it on the host clock (each part ending in a device synchronize):
+the atmosphere's constituent pipeline (``internal_object``), the device
+compute (``Engine._compute``: the forward model, the Jacobian rows and
+the LOS optical depth), the WF assembly (``Engine._assemble_wfs``, numpy)
+and the rest (the one host copy, validation, the output ``Dataset``).
 Needs a GPU.
 
 ``--time N`` skips the profiler: after the cold call it times N warm
@@ -151,6 +157,7 @@ def main():
         "polthermallimb4": "polthermallimb4_case",
         "solimb16": "solimb16_case", "solimb16_doinit": "solimb16_doinit_case",
         "polsolimb16": "polsolimb16_case", "o2a16": "o2a16_case",
+        "tomo2d": "tomo2d_case",
     }
     parser.add_argument("--case", choices=list(cases), default="ground")
     parser.add_argument("--trace", default=None,
@@ -178,7 +185,8 @@ def main():
     grid = {"polthermallimb4": scenarios.thermal_wavelengths,
             "solimb16": scenarios.so_wavelengths,
             "solimb16_doinit": scenarios.so_wavelengths,
-            "polsolimb16": scenarios.so_wavelengths}.get(
+            "polsolimb16": scenarios.so_wavelengths,
+            "tomo2d": scenarios.so_wavelengths}.get(
         args.case, scenarios.smoke_wavelengths)
     if args.case == "o2a16":
         import tempfile
@@ -215,18 +223,53 @@ def main():
     atmo.calculate_derivatives = False
     engine.calculate_radiance(atmo)
     profile_call(engine, atmo, f"{card}] [{args.case} radiance only")
-    walls = {}
+    walls, parts = {}, {}
     for jac in (True, False):
         atmo.calculate_derivatives = jac
+        parts[jac] = {}
+        timed_parts(engine, atmo, parts[jac])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.calculate_radiance(atmo)
-        torch.cuda.synchronize()
+        try:
+            engine.calculate_radiance(atmo)
+            torch.cuda.synchronize()
+        finally:
+            for obj, name in ((engine, "_compute"), (engine, "_assemble_wfs"),
+                              (atmo, "internal_object")):
+                vars(obj).pop(name, None)
         walls[jac] = time.perf_counter() - t0
     print(f"[{card}] [{args.case}] without the profiler: {walls[True]:.4f} s "
           f"with Jacobians, {walls[False]:.4f} s without; Jacobian rows' "
           f"share {(walls[True] - walls[False]) / walls[True]:.3f}",
           flush=True)
+    for jac in (True, False):
+        rest = walls[jac] - sum(parts[jac].values())
+        print(f"[{card}] [{args.case}] {'with' if jac else 'without'} "
+              "Jacobians, host clock: "
+              + "; ".join(f"{k} {v:.4f} s" for k, v in parts[jac].items())
+              + f"; rest {rest:.4f} s", flush=True)
+
+
+def timed_parts(engine, atmo, parts):
+    """Shadow the engine's ``_compute`` and ``_assemble_wfs`` and the
+    atmosphere's ``internal_object`` with timed wrappers (instance
+    attributes, which the caller removes): each adds its host-clock time,
+    device synchronized, to ``parts``."""
+    import torch
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    engine._compute = timed("device compute", engine._compute)
+    engine._assemble_wfs = timed("WF assembly", engine._assemble_wfs)
+    atmo.internal_object = timed("constituent pipeline", atmo.internal_object)
 
 
 if __name__ == "__main__":
