@@ -13,9 +13,12 @@ final line:
    registers and stack frame of every instantiation; the Jacobi kernel's
    shared-memory branch (8 < n <= 32) must have no stack frame.
 2. Thomas kernel (f32 and f64) against its plain PyTorch twin and an f64
-   truth, at the engine's shape and at the JAX package's test shapes, and
-   the autograd backward (which launches the kernel) against the plain
-   twin's autograd.
+   truth, at the engine's shape and at the JAX package's test shapes; its
+   pivoting branch (24 < K <= 48) the same way on random systems at K =
+   26, 32, 40 and 48 at a ragged W, and at each on a system whose leading
+   diagonal element is 0 in every layer (only a pivoting solve gets it
+   right); and the autograd backward (which launches the kernel) against
+   the plain twin's autograd, at K = 16 and 48.
 3. Jacobi kernel (f32 and f64, both branches: n <= 8 in registers,
    n = 12 to 32 in shared memory) against numpy ``eigvalsh``, the
    eigen-residual, the orthogonality of V, and the plain twin; repeated
@@ -55,15 +58,14 @@ final line:
 8. The kernel instances of the polarized path, each at a polarized
    engine's own inputs (captured in a radiance-only call): K3 at
    [100, 24, 24, 1024] (pol16) and [100, 6, 6, 1024] (pol4), K1/K2 at
-   [100, 12, 12, 1024] (pol4), each against its plain twin and a float64
-   truth, timed beside its bound (and ``torch.linalg.eigh`` for K3, the
-   dense ``torch.linalg.solve`` of [1024, 1200, 1200] for K1); the
-   eigen-residual of the engine's 7-sweep n = 24 eigensolves of every
-   azimuth mode, which must be <= 1e-5 of max |A|; and the
-   time of one K = 48 block-Thomas solve, which takes the torch-op loop
-   as the reference takes its scan (no kernel at K > 24), beside
-   ``torch.linalg.solve`` on the same systems assembled dense
-   ([1024, 4800, 4800], in calls of 128).
+   [100, 12, 12, 1024] (pol4) and, through the pivoting branch, at pol16's
+   [100, 48, 48, 1024], each against its plain twin and a float64 truth
+   (f32 within max(4 x the plain twin's error, 1e-5), f64 within 1e-10),
+   timed beside its bound (and ``torch.linalg.eigh`` for K3, the dense
+   ``torch.linalg.solve`` of [1024, 1200, 1200] and [1024, 4800, 4800] for
+   K1, in calls of 128); the eigen-residual of the engine's 7-sweep
+   n = 24 eigensolves of every azimuth mode, which must be <= 1e-5 of
+   max |A|.
 9. Flux observers (``scenarios.flux16_case``: 16 streams, one ray, six
    observers, all four flux types) with the checks of phase 4 against
    ``golden_flux16.npz``, the fluxes and their weighting functions
@@ -203,8 +205,8 @@ no ``jax`` or ``sasktran2_tpu`` module is loaded is made again before the
 kernel record, which lists every kernel instance with its launches in
 its own case (and in every case that launched it, ``ground16_mesh2``
 the split call of phase 27) and, apart, the
-torch-op paths: the K = 48 block-Thomas solve (with its library call)
-and the SO transport step.
+torch-op path of the SO transport step. No case may take the torch-op
+block-Thomas loop (K > 48).
 
 The line before the last is the kernel record as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -358,6 +360,25 @@ def thomas_inputs(P, K, W, seed, dtype, dev, shift=5.0):
     return [torch.as_tensor(t, dtype=dtype, device=dev) for t in (lo, di, up, r)]
 
 
+def thomas_pivot_inputs(P, K, W, seed, dtype, dev):
+    """A system only a pivoting solve gets right, as
+    ``tests/test_torch_thomas48.py`` makes it: diagonal blocks 10 x a
+    permutation matrix (no fixed point at row 0) plus N(0, 0.1^2) with
+    di[p, 0, 0] = 0 in every layer, N(0, 0.3^2) off-diagonal blocks."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lo = rng.normal(size=(P, K, K, W)) * 0.3
+    up = rng.normal(size=(P, K, K, W)) * 0.3
+    r = rng.normal(size=(P, K, W))
+    perm = rng.permutation(K)
+    perm = np.roll(perm, -int(np.argmax(perm == 0)) - 1)
+    di = rng.normal(size=(P, K, K, W)) * 0.1 + 10.0 * np.eye(K)[perm][
+        :, :, None]
+    di[:, 0, 0, :] = 0.0
+    return [torch.as_tensor(t, dtype=dtype, device=dev) for t in (lo, di, up, r)]
+
+
 def phase_thomas(dev, label):
     import torch
     from sasktran2_tpu_torch.ops import thomas_cuda
@@ -367,11 +388,18 @@ def phase_thomas(dev, label):
     record = {}
     # the JAX package's test shapes use its diagonal shift of 5; among the
     # 10^5 blocks of the engine-sized cases some N(0, 1) + 5 I blocks are
-    # near-singular for K >= 16, so those get 5 + 2 sqrt(K)
-    for P, K, W, shift in [(100, 16, 1024, 13.0), (8, 24, 300, 14.8),
-                           (7, 4, 8, 5.0), (13, 16, 130, 5.0),
-                           (5, 6, 128, 5.0)]:
-        a64 = thomas_inputs(P, K, W, 1 + P + K, f64, dev, shift)
+    # near-singular for K >= 16, so those get 5 + 2 sqrt(K); K > 24 is the
+    # pivoting branch, at the ragged W = 1001 (element copies, a partial
+    # last block) and 1004 (16-byte copies)
+    cases = [(100, 16, 1024, 13.0), (8, 24, 300, 14.8), (7, 4, 8, 5.0),
+             (13, 16, 130, 5.0), (5, 6, 128, 5.0)]
+    for K, W in [(26, 1001), (32, 1004), (40, 1001), (48, 1001)]:
+        cases += [(20, K, W, 5.0 + 2.0 * K**0.5), (20, K, W, "pivot")]
+    for P, K, W, shift in cases:
+        if shift == "pivot":
+            a64 = thomas_pivot_inputs(P, K, W, 7 + K, f64, dev)
+        else:
+            a64 = thomas_inputs(P, K, W, 1 + P + K, f64, dev, shift)
         a32 = [t.to(f32) for t in a64]
         truth = thomas_cuda.thomas_solve_plain(*a64)
         k64 = thomas_cuda.thomas_solve(*a64)
@@ -382,7 +410,8 @@ def phase_thomas(dev, label):
         err_p = float((p32 - truth).abs().max())
         rel64 = float((k64 - truth).abs().max() / truth.abs().max())
         kp = float((k32 - p32).abs().max())
-        print(f"[{label}] thomas P={P} K={K} W={W}: f32 kernel err "
+        what = " (pivot-needing)" if shift == "pivot" else ""
+        print(f"[{label}] thomas P={P} K={K} W={W}{what}: f32 kernel err "
               f"{err_k:.3e} vs plain-f32 err {err_p:.3e} "
               f"(<= max(4*plain, 1e-5)); "
               f"|kernel-plain| f32 {kp:.3e}; f64 kernel vs plain rel "
@@ -394,23 +423,24 @@ def phase_thomas(dev, label):
 
     # autograd: the Function's backward runs the kernel on the transposed
     # system; compare with autograd through the plain loop, in f64
-    lo, di, up, r = thomas_inputs(13, 16, 130, 7, f64, dev)
-    g = torch.as_tensor(np.random.default_rng(8).normal(size=r.shape),
-                        dtype=f64, device=dev)
-    ins_k = [t.clone().requires_grad_(True) for t in (lo, di, up, r)]
-    ins_p = [t.clone().requires_grad_(True) for t in (lo, di, up, r)]
-    before = thomas_cuda.thomas_solve.launches
-    (lane_block_thomas_solve(*ins_k) * g).sum().backward()
-    launched = thomas_cuda.thomas_solve.launches - before
-    (thomas_cuda.thomas_solve_plain(*ins_p) * g).sum().backward()
-    gerr = max(
-        float((a.grad - b.grad).abs().max() / b.grad.abs().max())
-        for a, b in zip(ins_k, ins_p)
-    )
-    print(f"[{label}] thomas autograd (13,16,130) f64: grad rel err "
-          f"{gerr:.3e} (<= 1e-9), kernel launches {launched} (fwd + bwd)",
-          flush=True)
-    check(gerr <= 1e-9 and launched == 2, "thomas autograd")
+    for K, shift in ((16, 5.0), (48, 5.0 + 2.0 * 48**0.5)):
+        lo, di, up, r = thomas_inputs(13, K, 130, 7, f64, dev, shift)
+        g = torch.as_tensor(np.random.default_rng(8).normal(size=r.shape),
+                            dtype=f64, device=dev)
+        ins_k = [t.clone().requires_grad_(True) for t in (lo, di, up, r)]
+        ins_p = [t.clone().requires_grad_(True) for t in (lo, di, up, r)]
+        before = thomas_cuda.thomas_solve.launches_by_k.get(K, 0)
+        (lane_block_thomas_solve(*ins_k) * g).sum().backward()
+        launched = thomas_cuda.thomas_solve.launches_by_k[K] - before
+        (thomas_cuda.thomas_solve_plain(*ins_p) * g).sum().backward()
+        gerr = max(
+            float((a.grad - b.grad).abs().max() / b.grad.abs().max())
+            for a, b in zip(ins_k, ins_p)
+        )
+        print(f"[{label}] thomas autograd (13,{K},130) f64: grad rel err "
+              f"{gerr:.3e} (<= 1e-9), kernel launches {launched} (fwd + "
+              "bwd)", flush=True)
+        check(gerr <= 1e-9 and launched == 2, f"thomas autograd K={K}")
 
     a32 = [t.to(f32) for t in thomas_inputs(100, 16, 1024, 3, f64, dev, 13.0)]
     record["ms"] = cuda_ms(lambda: thomas_cuda.thomas_solve(*a32), 20)
@@ -421,8 +451,7 @@ def phase_thomas(dev, label):
     return record
 
 
-def library_dense_solve_ms(system, label, chunk=128, group_bytes=16e9,
-                           solve=None):
+def library_dense_solve_ms(system, label, chunk=128, group_bytes=16e9):
     """Time of ``torch.linalg.solve`` on the block-tridiagonal systems
     ``system`` = (lo, di, up, r) [P, K, K, W] assembled as dense
     [W, P*K, P*K] matrices, the one PyTorch call that computes the same x
@@ -430,8 +459,7 @@ def library_dense_solve_ms(system, label, chunk=128, group_bytes=16e9,
     call, the matrices of a group of chunks (at most ``group_bytes`` of
     them) assembled before the clock starts, the groups' times summed.
     Prints the dense solution's largest difference from the Thomas
-    solve's (``solve``: the kernel, or for K > 24 the torch-op loop)
-    relative to max |x|, as a note."""
+    kernel's relative to max |x|, as a note."""
     import torch
     from sasktran2_tpu_torch.ops import thomas_cuda
 
@@ -440,7 +468,7 @@ def library_dense_solve_ms(system, label, chunk=128, group_bytes=16e9,
     idx = torch.arange(P, device=di.device)
     per_chunk = chunk * (P * K) ** 2 * di.element_size()
     group = max(1, int(group_bytes // per_chunk)) * chunk
-    xk = (solve or thomas_cuda.thomas_solve)(*system)
+    xk = thomas_cuda.thomas_solve(*system)
     ms, diff, calls = 0.0, 0.0, 0
     for g0 in range(0, W, group):
         chunks = []
@@ -708,7 +736,7 @@ def reset_launches():
 
 def read_launches():
     """The kernels' launch counts, in all and per instance, the
-    block-Thomas solves that took the torch-op loop (K > 24) per K, and
+    block-Thomas solves that took the torch-op loop (K > 48) per K, and
     the SO transport steps."""
     from sasktran2_tpu_torch.ops import jacobi_cuda, lanes, thomas_cuda
     from sasktran2_tpu_torch.rt import successive
@@ -769,8 +797,8 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
     engine's gates for the case, the route must be theirs. Where the JAX
     package cannot compile the case (``golden_path`` None) the reference
     is the port's own float64 run on the card (a float32 case only).
-    ``kernels_expected`` maps each kernel (and ``torch_op_thomas``, the
-    K > 24 block solves) to the instances (K or n) the path must launch.
+    ``kernels_expected`` maps each kernel to the instances (K or n) the
+    path must launch; no block-Thomas solve may take the torch-op loop.
     ``generic`` None leaves the route to the engine; "forced" sends it
     down the generic route (``force_generic``), "own" requires that the
     engine's gates chose the generic route, and both check that the call
@@ -819,11 +847,12 @@ def engine_case(sk, build, golden_path, wl, reps, what, label,
         check(not engine._fast_route, f"{what}: the call did not take the "
               "generic route")
     for name, sizes in kernels_expected.items():
-        by = launches[{"thomas": "thomas_by_k", "jacobi": "jacobi_by_n",
-                       "torch_op_thomas": "torch_op_thomas_by_k"}[name]]
+        by = launches[{"thomas": "thomas_by_k", "jacobi": "jacobi_by_n"}[name]]
         for size in sizes:
             check(by.get(size, 0) > 0, f"{what}: the {name} kernel at "
                   f"{size} was not launched")
+    check(not launches["torch_op_thomas_by_k"], f"{what}: block-Thomas "
+          f"solves took the torch-op loop: {launches['torch_op_thomas_by_k']}")
     check_no_jax(label)
     rad = out["radiance"].to_numpy()
     names = [k for k in out.keys() if k.startswith("wf_")
@@ -1769,24 +1798,30 @@ def phase_jacobi_instance(a32, label, what, timed=True):
 def phase_thomas_instance(system32, label, what, timed=True):
     """K1/K2 at an engine's own block-tridiagonal system (f32): the kernel
     and its plain twin against a float64 solve of the same system, error
-    relative to max |x| <= max(4 x the plain twin's, 1e-5); where
-    ``timed``, the record: time, bound and the dense
-    ``torch.linalg.solve``'s time."""
+    relative to max |x| <= max(4 x the plain twin's, 1e-5), and the kernel
+    on the system in float64 within 1e-10 of it; where ``timed``, the
+    record: time, bound and the dense ``torch.linalg.solve``'s time."""
     import torch
     from sasktran2_tpu_torch.ops import thomas_cuda
 
     P, K, _, W = system32[1].shape
-    truth = thomas_cuda.thomas_solve_plain(*[t.double() for t in system32])
+    system64 = [t.double() for t in system32]
+    truth = thomas_cuda.thomas_solve_plain(*system64)
     xk = thomas_cuda.thomas_solve(*system32).double()
     xp = thomas_cuda.thomas_solve_plain(*system32).double()
+    x64 = thomas_cuda.thomas_solve(*system64)
     scale = float(truth.abs().max())
     err_k = float((xk - truth).abs().max()) / scale
     err_p = float((xp - truth).abs().max()) / scale
+    err_64 = float((x64 - truth).abs().max()) / scale
+    del system64, x64
     torch.cuda.synchronize()
     print(f"[{label}] K1/K2 thomas at {what}'s own system [{P}, {K}, {K}, "
           f"{W}] f32: vs f64 solve rel {err_k:.3e} (<= max(4 x plain "
-          f"{err_p:.3e}, 1e-5))", flush=True)
+          f"{err_p:.3e}, 1e-5)); the kernel in f64 rel {err_64:.3e} "
+          "(<= 1e-10)", flush=True)
     check(err_k <= max(4.0 * err_p, 1e-5), f"thomas instance K={K}")
+    check(err_64 <= 1e-10, f"thomas instance K={K} f64")
     if not timed:
         return None
     rec = {"max_abs_err": float((xk - xp).abs().max())}
@@ -2026,13 +2061,16 @@ def main():
         check(res <= 1e-5, f"jacobi eigen-residual at pol16 mode {m}")
     jacobi6_rec = phase_jacobi_instance(eig4[0], label, "pol4")
     thomas12_rec = phase_thomas_instance(bvp4[0], label, "pol4")
-    k48 = bvp16[0]
-    k48_ms = cuda_ms(lambda: thomas_cuda.thomas_solve_plain(*k48), 3)
-    print(f"[{label}] pol16 BVP {tuple(k48[1].shape)} f32 through the "
-          f"torch-op loop (no kernel at K > 24, as the reference's scan): "
-          f"{k48_ms:.3f} ms per solve", flush=True)
-    k48_library_ms = library_dense_solve_ms(
-        k48, label, solve=thomas_cuda.thomas_solve_plain)
+    # the pivoting branch at pol16's own system; its plain twin is the
+    # torch-op loop that solved it before (pivoted torch.linalg.solve)
+    thomas48_rec = phase_thomas_instance(bvp16[0], label, "pol16")
+    print(f"[{label}] pol16 BVP [100, 48, 48, 1024] f32: pivoting kernel "
+          f"{thomas48_rec['ms']:.3f} ms per solve, bound "
+          f"{thomas48_rec['bound_ms']:.4f} ms ({thomas48_rec['bound_by']}), "
+          f"share {thomas48_rec['bound_ms'] / thomas48_rec['ms']:.4f}; the "
+          f"plain loop {thomas48_rec['plain_ms']:.3f} ms; dense "
+          f"torch.linalg.solve {thomas48_rec['library_ms']:.3f} ms",
+          flush=True)
     del eig4, bvp4, eig16, bvp16
     phase_done(label, 8)
 
@@ -2056,12 +2094,12 @@ def main():
     phase_pol16_solver(label)
     # no warm call with Jacobians for the two 16-stream polarized cases
     # (their cold call's time stands for it): a call with Jacobians takes
-    # 50-80 s on the H100 (PERF.md), and the script must end within
+    # 35-60 s on the H100 (PERF.md), and the script must end within
     # 1,200 s
     pol16_launches = engine_case(
         sk, pol16_case, None, wl, 0,
         "pol16 nstr=16 P=100 nlos=4 (I, Q, U)", label,
-        kernels_expected={"jacobi": [24], "torch_op_thomas": [48]},
+        kernels_expected={"jacobi": [24], "thomas": [48]},
     )
     phase_dolp_16_vs_8(label)
     phase_done(label, 11)
@@ -2070,7 +2108,7 @@ def main():
     limbpol_launches = engine_case(
         sk, limbpol16_case, None, wl, 0,
         f"limbpol16 nstr=16 P=100 nlos={LIMBPOL_NUM_LOS} (I, Q, U)", label,
-        kernels_expected={"jacobi": [24], "torch_op_thomas": [48]},
+        kernels_expected={"jacobi": [24], "thomas": [48]},
     )
     phase_done(label, 12)
 
@@ -2227,6 +2265,8 @@ def main():
          **instance("thomas", 16, "ground16"), **thomas_rec},
         {"name": "thomas_block_tridiag_solve K=12 (pol4)", **thomas,
          **instance("thomas", 12, "pol4"), **thomas12_rec},
+        {"name": "thomas_block_tridiag_solve K=48 (pol16; pivoting branch)",
+         **thomas, **instance("thomas", 48, "pol16"), **thomas48_rec},
         {"name": "jacobi_eigh", **jacobi,
          **instance("jacobi", 8, "ground16"), **jacobi_rec},
         {"name": "jacobi_eigh n=6 (pol4)", **jacobi,
@@ -2244,16 +2284,6 @@ def main():
          **instance("jacobi", 8, "o2a16"), **jacobi_o2a_rec},
     ]
     torch_op_paths = [
-        {"name": "thomas_block_tridiag_solve K=48 (pol16)",
-         "route": "torch ops, as the reference's scan; no Pallas kernel at "
-                  "K > 24",
-         "source": "sasktran2_tpu_torch/ops/thomas_cuda.py "
-                   "(thomas_solve_plain)",
-         "calls": pol16_launches["torch_op_thomas_by_k"][48],
-         "calls_by_path": {
-             "pol16": pol16_launches["torch_op_thomas_by_k"][48],
-             "limbpol16": limbpol_launches["torch_op_thomas_by_k"][48]},
-         "ms": k48_ms, "library_ms": k48_library_ms},
         {"name": "so_transport_step",
          "route": "torch ops (sparse CSR products); the JAX package's "
                   "transport is XLA gathers, no Pallas kernel",

@@ -1,18 +1,24 @@
 // Block-tridiagonal Thomas solve for the N-stream BVP, one launch.
 //
 // Replaces the Pallas TPU kernels _fwd_kernel and _bwd_kernel of
-// thomas_solve_pallas (sasktran2_tpu/ops/pallas_thomas.py:47-190).
+// thomas_solve_pallas (sasktran2_tpu/ops/pallas_thomas.py:47-190), and
+// for 24 < K <= 48 the scan the JAX package runs there instead
+// (_thomas_forward, sasktran2_tpu/ops/lanes.py:403, whose blocks are
+// solved by a pivoted jnp.linalg.solve, lanes.py:113-133).
 //
 // Solves lo[p] x[p-1] + di[p] x[p] + up[p] x[p+1] = r[p] for p = 0..P-1
 // (lo[0] and up[P-1] ignored) with lo/di/up [P, K, K, W] and r [P, K, W],
-// row-major, wavelength W the fastest axis, K <= 24. Forward elimination
+// row-major, wavelength W the fastest axis, K <= 48. Forward elimination
 // per layer:
 //   denom = di[p] - lo[p] c[p-1],  rhs = r[p] - lo[p] y[p-1],
-//   denom [c[p] | y[p]] = [up[p] | rhs]  (Gauss-Jordan, no pivoting),
-// then back substitution x[p] = y[p] - c[p] x[p+1]. x is the result; the
-// buffers c and y (sized [P, K, K, W] and [P, K, W]) hold c[p] and y[p]
-// in a lane-major layout, c[p][w] a contiguous K x K block, for the back
-// substitution.
+//   denom [c[p] | y[p]] = [up[p] | rhs]  (Gauss-Jordan),
+// then back substitution x[p] = y[p] - c[p] x[p+1]. x is the result. Two
+// branches:
+//
+// K <= 24 (thomas_kernel, "v3"): Gauss-Jordan without pivoting, as the
+// Pallas kernel. The buffers c and y (sized [P, K, K, W] and [P, K, W])
+// hold c[p] and y[p] in a lane-major layout, c[p][w] a contiguous K x K
+// block, for the back substitution.
 //
 // Design. A block holds LW wavelength lanes (8 in f32, 4 in f64), one
 // warp per lane. Within a warp, thread t works on row i = t / TPR of its
@@ -45,8 +51,53 @@
 // SM. Each layer is KMAX dependent pivot steps (shared store, warp
 // fence, shared load, FMA) per warp; the card's memory rate would allow
 // the 328 MB of operands in about 0.1 ms.
+//
+// 24 < K <= 48 (thomas_pivot_kernel; the polarized 16-stream solver's
+// K = 48): Gauss-Jordan with partial (row) pivoting, as the reference's
+// pivoted solve. What bounds it: per lane and layer a 48 x 48 x 48
+// product lo c[p-1] and the elimination of a 48 x 97 system, 68.9 GFLOP
+// for [100, 48, 48, 1024] (1.03 ms at the FP32 rate; its 2.87 GB of
+// operands 0.86 ms), but 1024 systems each serial over P layers and 48
+// pivot steps a layer, each step a column arg-max and a pivot row that
+// every thread of the lane must see. Tensor cores are no route: the
+// products stay in full FP32 (no TF32). v3's warp per lane does not fit
+// 48 x 97 systems, so the design is:
+// - A lane's system is held in registers by TPL = RG x CG threads, thread
+//   (g, h) owning rows g + RG m (m < 48 / RG) and, in each half of
+//   [denom | up] and c[p-1], columns h + CG n (n < 48 / CG); h = 0 also
+//   owns the rhs column. f32: RG = 16, CG = 4 (a 3 x 24 tile, 64 threads
+//   a lane); f64: RG = 16, CG = 8 (3 x 12, 128 threads a lane). At
+//   [100, 48, 48, 1024] f32 on the H100 (tools/probe_thomas_pivot.py):
+//   8 x 8 (6 x 12 tiles, longer select chains to pick the pivot row out
+//   of registers) 10.5 ms, 4 x 16 (12 x 6, spilling) 13.8 ms, this 8.95
+//   ms. The elimination is about 80% of that, and its arg-max a quarter:
+//   per step the arg-max, the pivot row's selection and the publishing
+//   stores come to several instructions per FMA.
+// - A block holds LW lanes (8 in f32, 4 in f64: 32 bytes, one sector, of
+//   each W-minor operand row), 512 threads, lane the fastest thread
+//   index: every global load or store of a warp covers whole sectors, so
+//   the W-minor operands are read as they lie, with no transposing pass.
+//   All lanes of a block take the same steps, so they share its barriers.
+//   About 158 KB of shared memory: one block, 8 lanes, per SM, so the
+//   1024 lanes of the slice run in a single wave.
+// - A step: every warp finds the pivot of each of its lanes from the
+//   published column (a shuffle arg-max over the unpivoted rows, the
+//   lowest row on ties, so all warps agree); the pivot row's owners
+//   publish it scaled by 1 / pivot; a barrier; every thread subtracts it
+//   from its rows and the owners of the next column publish that. Rows
+//   are never swapped or rescaled once pivoted: a pivoted row keeps its
+//   scale in a register and is scaled once, when c[p] | y[p] is written
+//   to shared memory for the next layer's product; from there it goes to
+//   the scratch for the back substitution in 16-byte vectors (its rows
+//   are in each lane's pivot order, so stores from registers would
+//   scatter). Two barriers a step.
+// - lo[p + 1] is copied into shared memory with cp.async while layer p
+//   eliminates, and di, up and r of layer p + 1 are prefetched into L2;
+//   the back substitution prefetches the next layer's c | y.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -409,13 +460,372 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-// 16-byte copies where every tile row starts 16-byte aligned (W a multiple
-// of the elements per copy), element copies otherwise.
+// ---------------------------------------------------------------------------
+// The pivoting branch, 24 < K <= 48.
+// ---------------------------------------------------------------------------
+
+constexpr int PK = 48;  // its bound on K
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Shared-memory layout in elements of T, every region [..][lane]: lo of
+// the layer [PK][PK][LW]; c | y of the previous layer [PK][PK + 1][LW];
+// the published pivot column, double-buffered [2][PK][LW]; the published
+// pivot row [2 PK + 1][LW] (denom part, up part, rhs); x[p+1] of the back
+// substitution [2][PK][LW]. LW elements are 32 bytes, so every region is
+// 32-byte aligned.
+template <typename T, int LW, int RG, int CG>
+struct Pivot {
+  static constexpr int LANES = LW;
+  static constexpr int ROWG = RG;
+  static constexpr int COLG = CG;
+  static constexpr int TPL = RG * CG;  // threads per lane
+  static constexpr int NT = LW * TPL;  // threads per block
+  static constexpr int MR = PK / RG;   // rows per thread
+  static constexpr int MC = PK / CG;   // columns per thread in each half
+  static constexpr int CS = PK + 1;    // row of c | y
+  static constexpr int LO = 0;
+  static constexpr int CB = LO + PK * PK * LW;
+  static constexpr int COL = CB + PK * CS * LW;
+  static constexpr int ROW = COL + 2 * PK * LW;
+  static constexpr int XS = ROW + (2 * PK + 1) * LW;
+  static constexpr int TOTAL = XS + 2 * PK * LW;
+  static constexpr int SCRATCH = PK * CS * LW;  // c | y of one layer and block
+  static_assert(LW * sizeof(T) == 32, "a lane group is one 32-byte sector");
+  static_assert(PK % RG == 0 && PK % CG == 0 && NT % 32 == 0, "tiling");
+  static_assert((32 / LW) <= CG && CG % (32 / LW) == 0,
+                "a warp holds one row group");
+};
+
+// Copy lo[p] (rows and columns < K) for lanes w0 .. w0 + LW into `los`,
+// V lanes a copy; lanes past W are zero-filled.
+template <typename T, int LW, int NT, bool VEC>
+__device__ __forceinline__ void pivot_load_lo(const T* lo, T* los, int p, int K, int W,
+                                              int w0) {
+  constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int PER = LW / V;
+  const int items = K * K * PER;
+  const T* base = lo + static_cast<long long>(p) * K * K * W;
+  for (int it = threadIdx.x; it < items; it += NT) {
+    const int ik = it / PER;
+    const int part = it - ik * PER;
+    const int i = ik / K;
+    const int k = ik - i * K;
+    const int wl = w0 + part * V;
+    const bool valid = wl < W;
+    const T* src = base + static_cast<long long>(ik) * W + wl;
+    cp_async<T, V>(los + (i * PK + k) * LW + part * V, valid ? src : base, valid);
+  }
+}
+
+template <typename T, int LW, int RG, int CG, bool VEC>
+__global__ void __launch_bounds__(LW * RG * CG, 1)
+thomas_pivot_kernel(const T* __restrict__ lo, const T* __restrict__ di,
+                    const T* __restrict__ up, const T* __restrict__ r,
+                    T* cy, T* __restrict__ x, int P, int K, int W) {
+  using S = Pivot<T, LW, RG, CG>;
+  constexpr int MR = S::MR;
+  constexpr int MC = S::MC;
+  constexpr int CS = S::CS;
+  constexpr int NT = S::NT;
+  constexpr int TW = 32 / LW;  // threads of one lane in a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* los = sm + S::LO;
+  T* cb = sm + S::CB;
+  T* colb = sm + S::COL;
+  T* rowb = sm + S::ROW;
+  T* xs = sm + S::XS;
+
+  const int t = threadIdx.x;
+  const int l = t % LW;        // lane of the block
+  const int q = t / LW;        // tile of the lane
+  const int g = q / CG;        // row group
+  const int h = q % CG;        // column group
+  const int qq = (t % 32) / LW;  // this thread's share of the arg-max scan
+  const int w0 = blockIdx.x * LW;
+  const int w = w0 + l;
+  const bool live = w < W;
+  const int wl = live ? w : W - 1;  // a dead lane reads a live lane's di, up, r
+  const long long KW = static_cast<long long>(K) * W;
+  const long long KKW = KW * K;
+  const long long cy_layer = static_cast<long long>(gridDim.x) * S::SCRATCH;
+  T* cy_blk = cy + static_cast<long long>(blockIdx.x) * S::SCRATCH;
+
+  for (int e = t; e < S::COL; e += NT) sm[e] = T(0);  // lo and c | y padding
+  __syncthreads();
+  pivot_load_lo<T, LW, NT, VEC>(lo, los, 0, K, W, w0);
+  cp_async_commit();
+
+  T a[MR][MC];  // denom, columns h + CG n
+  T u[MR][MC];  // up, then c[p], columns h + CG n
+  T bb[MR];     // the rhs, then y[p] (column group 0)
+  T rinv[MR];   // 1 / pivot of the step at which the row was pivoted
+  int rstep[MR];
+
+  // c[p] | y[p] from shared memory to the scratch, in 16-byte vectors: the
+  // rows are in pivot order per lane, so a store from registers would
+  // scatter over sectors
+  auto store_cy = [&](int p) {
+    constexpr int V = 16 / static_cast<int>(sizeof(T));
+    using Vec = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
+    const Vec* src = reinterpret_cast<const Vec*>(cb);
+    Vec* dst = reinterpret_cast<Vec*>(cy_blk + p * cy_layer);
+    for (int e = t; e < K * CS * LW / V; e += NT) dst[e] = src[e];
+  };
+
+  for (int p = 0; p < P; ++p) {
+    // --- this thread's elements of di[p], up[p] and r[p] ----------------------
+    const T* di_p = di + p * KKW;
+    const T* up_p = up + p * KKW;
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      const int i = g + RG * m;
+#pragma unroll
+      for (int n = 0; n < MC; ++n) {
+        const int j = h + CG * n;
+        const bool in = i < K && j < K;
+        const long long o = static_cast<long long>(i * K + j) * W + wl;
+        a[m][n] = in ? di_p[o] : T(0);
+        u[m][n] = in ? up_p[o] : T(0);
+      }
+      bb[m] = (h == 0 && i < K) ? r[p * KW + static_cast<long long>(i) * W + wl] : T(0);
+      rinv[m] = T(0);
+      rstep[m] = 0;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // lo[p] and c[p-1] | y[p-1] are in shared memory
+    if (p > 0) store_cy(p - 1);
+
+    // --- denom = di - lo c[p-1], rhs = r - lo y[p-1] ----------------------------
+    if (p > 0) {
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        T lv[MR], cv[MC];
+#pragma unroll
+        for (int m = 0; m < MR; ++m) lv[m] = los[((g + RG * m) * PK + k) * LW + l];
+#pragma unroll
+        for (int n = 0; n < MC; ++n) cv[n] = cb[(k * CS + h + CG * n) * LW + l];
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+#pragma unroll
+          for (int n = 0; n < MC; ++n) a[m][n] -= lv[m] * cv[n];
+        }
+        if (h == 0) {
+          const T yk = cb[(k * CS + PK) * LW + l];
+#pragma unroll
+          for (int m = 0; m < MR; ++m) bb[m] -= lv[m] * yk;
+        }
+      }
+    }
+    if (h == 0) {  // publish column 0
+#pragma unroll
+      for (int m = 0; m < MR; ++m) colb[(g + RG * m) * LW + l] = a[m][0];
+    }
+
+    // --- Gauss-Jordan with partial pivoting ------------------------------------
+    // rows past K count as pivoted from the start, so never chosen
+    unsigned long long pivoted = ~((1ull << K) - 1ull);
+    for (int s = 0; s < K; ++s) {
+      const T* col = colb + (s & 1) * PK * LW;
+      __syncthreads();  // column s published; the row buffer is free
+      if (s == 0 && p + 1 < P) {
+        // lo is free (the product is done): copy the next layer's, and
+        // bring its di, up and r into L2
+        pivot_load_lo<T, LW, NT, VEC>(lo, los, p + 1, K, W, w0);
+        cp_async_commit();
+        const int kk = K * K;
+        const T* dn = di + (p + 1) * KKW + w0;
+        const T* un = up + (p + 1) * KKW + w0;
+        const T* rn = r + (p + 1) * KW + w0;
+        for (int it = t; it < 2 * kk + K; it += NT) {
+          const T* src = it < kk ? dn + static_cast<long long>(it) * W
+                                 : (it < 2 * kk ? un + static_cast<long long>(it - kk) * W
+                                                : rn + static_cast<long long>(it - 2 * kk) * W);
+          prefetch_l2(src);
+        }
+      }
+      // the pivot: the largest |column s| over the unpivoted rows, the
+      // lowest row on ties; NaN is never chosen
+      T best = T(-1);
+      int bi = PK;
+#pragma unroll
+      for (int rr = 0; rr < PK / TW; ++rr) {
+        const int i = qq + TW * rr;
+        const T v = ((pivoted >> i) & 1ull) ? T(-1) : fabs(col[i * LW + l]);
+        if (v > best) {
+          best = v;
+          bi = i;
+        }
+      }
+#pragma unroll
+      for (int o = LW; o < 32; o <<= 1) {
+        const T ob = __shfl_xor_sync(FULL, best, o);
+        const int oi = __shfl_xor_sync(FULL, bi, o);
+        if (ob > best || (ob == best && oi < bi)) {
+          best = ob;
+          bi = oi;
+        }
+      }
+      const int piv = bi < PK ? bi : __ffsll(static_cast<long long>(~pivoted)) - 1;
+      pivoted |= 1ull << piv;
+      const T inv = T(1) / col[piv * LW + l];
+      const int mp = piv / RG;
+      // the pivot row's owners publish it scaled by 1 / pivot
+      if (g == piv - RG * mp) {
+#pragma unroll
+        for (int n = 0; n < MC; ++n) {
+          T va = a[0][n], vu = u[0][n];
+#pragma unroll
+          for (int m = 1; m < MR; ++m) {
+            va = mp == m ? a[m][n] : va;
+            vu = mp == m ? u[m][n] : vu;
+          }
+          rowb[(h + CG * n) * LW + l] = va * inv;
+          rowb[(PK + h + CG * n) * LW + l] = vu * inv;
+        }
+        if (h == 0) {
+          T vb = bb[0];
+#pragma unroll
+          for (int m = 1; m < MR; ++m) vb = mp == m ? bb[m] : vb;
+          rowb[2 * PK * LW + l] = vb * inv;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        const bool is = g + RG * m == piv;
+        rinv[m] = is ? inv : rinv[m];
+        rstep[m] = is ? s : rstep[m];
+      }
+      __syncthreads();  // the pivot row is published
+
+      // every other row: row -= (its column s) x the scaled pivot row
+      T f[MR];
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        const int i = g + RG * m;
+        f[m] = i == piv ? T(0) : col[i * LW + l];
+      }
+#pragma unroll
+      for (int n = 0; n < MC; ++n) {
+        if (CG * n + CG - 1 > s) {  // columns <= s are done
+          const T rv = rowb[(h + CG * n) * LW + l];
+#pragma unroll
+          for (int m = 0; m < MR; ++m) a[m][n] -= f[m] * rv;
+        }
+        const T rv = rowb[(PK + h + CG * n) * LW + l];
+#pragma unroll
+        for (int m = 0; m < MR; ++m) u[m][n] -= f[m] * rv;
+      }
+      if (h == 0) {
+        const T rv = rowb[2 * PK * LW + l];
+#pragma unroll
+        for (int m = 0; m < MR; ++m) bb[m] -= f[m] * rv;
+      }
+      // the owners of column s + 1 publish it
+      T* cn = colb + ((s + 1) & 1) * PK * LW;
+#pragma unroll
+      for (int n = 0; n < MC; ++n) {
+        if (h + CG * n == s + 1) {
+#pragma unroll
+          for (int m = 0; m < MR; ++m) cn[(g + RG * m) * LW + l] = a[m][n];
+        }
+      }
+    }
+
+    // --- c[p] | y[p]: row rstep of the solution, scaled once, into shared
+    // memory for the next layer's product; the next barrier hands it to
+    // store_cy
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      if (g + RG * m < K) {
+        T* dst = cb + rstep[m] * CS * LW + l;
+#pragma unroll
+        for (int n = 0; n < MC; ++n) dst[(h + CG * n) * LW] = u[m][n] * rinv[m];
+        if (h == 0) dst[PK * LW] = bb[m] * rinv[m];
+      }
+    }
+  }
+  __syncthreads();
+  store_cy(P - 1);
+
+  // --- back substitution, layer P-1 down to 0: thread q < K takes row q ----------
+  __syncthreads();  // the block's c | y stores are visible to the block
+  for (int p = P - 1; p >= 0; --p) {
+    const T* cy_p = cy_blk + p * cy_layer;
+    if (p > 0) {
+      const T* nxt = cy_p - cy_layer;
+      for (int e = t * (32 / sizeof(T)); e < K * CS * LW; e += NT * (32 / sizeof(T))) {
+        prefetch_l2(nxt + e);
+      }
+    }
+    if (q < K) {
+      const T* row = cy_p + q * CS * LW + l;
+      T acc[4] = {row[PK * LW], T(0), T(0), T(0)};
+      if (p < P - 1) {
+        const T* xn = xs + ((p + 1) & 1) * PK * LW + l;
+        int j = 0;
+        for (; j + 4 <= K; j += 4) {
+#pragma unroll
+          for (int d = 0; d < 4; ++d) acc[d] -= row[(j + d) * LW] * xn[(j + d) * LW];
+        }
+        for (; j < K; ++j) acc[0] -= row[j * LW] * xn[j * LW];
+      }
+      const T v = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      xs[(p & 1) * PK * LW + q * LW + l] = v;
+      if (live) x[p * KW + static_cast<long long>(q) * W + w] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// The pivoting branch's tiling per type: LW lanes a block, RG row groups,
+// CG column groups.
+template <typename T>
+struct PivotTiling;
+template <>
+struct PivotTiling<float> {
+  using S = Pivot<float, 8, 16, 4>;
+};
+template <>
+struct PivotTiling<double> {
+  using S = Pivot<double, 4, 16, 8>;
+};
+
+template <typename T>
+int launch_pivot(const void* lo, const void* di, const void* up, const void* r, void* cy,
+                 void* x, int P, int K, int W, cudaStream_t stream) {
+  using S = typename PivotTiling<T>::S;
+  const size_t shared = static_cast<size_t>(S::TOTAL) * sizeof(T);
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const bool vec = W % V == 0 && aligned16(lo);
+  auto kernel = vec ? thomas_pivot_kernel<T, S::LANES, S::ROWG, S::COLG, true>
+                    : thomas_pivot_kernel<T, S::LANES, S::ROWG, S::COLG, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (W + S::LANES - 1) / S::LANES;
+  kernel<<<blocks, S::NT, shared, stream>>>(
+      static_cast<const T*>(lo), static_cast<const T*>(di), static_cast<const T*>(up),
+      static_cast<const T*>(r), static_cast<T*>(cy), static_cast<T*>(x), P, K, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K <= 24: v3, with 16-byte copies where every tile row starts 16-byte
+// aligned (W a multiple of the elements per copy), element copies
+// otherwise. 24 < K <= 48: the pivoting branch.
 template <typename T, int LW>
 int launch(const void* lo, const void* di, const void* up, const void* r, void* c,
            void* y, void* x, int P, int K, int W, void* stream) {
-  if (P < 1 || K < 1 || K > 24 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (P < 1 || K < 1 || K > PK || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K > 24) return launch_pivot<T>(lo, di, up, r, c, x, P, K, W, s);  // c: its scratch
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   if (W % V == 0 && aligned16(lo) && aligned16(di) && aligned16(up) && aligned16(r)) {
     return launch_e<T, LW, V>(lo, di, up, r, c, y, x, P, K, W, s);
@@ -429,6 +839,20 @@ extern "C" int thomas_solve_f32(const void* lo, const void* di, const void* up,
                                 const void* r, void* c, void* y, void* x,
                                 int P, int K, int W, void* stream) {
   return launch<float, 8>(lo, di, up, r, c, y, x, P, K, W, stream);
+}
+
+// Elements of the scratch buffer c for one layer: v3's c[p] [K, K, W],
+// or the pivoting branch's c | y of every block [PK][PK + 1][LW]. The
+// caller allocates P times this; v3 also takes y [P, K, W].
+template <typename S>
+int pivot_scratch(int W) {
+  return (W + S::LANES - 1) / S::LANES * S::SCRATCH;
+}
+
+extern "C" int thomas_scratch_per_layer(int K, int W, int is_f64) {
+  if (K <= 24) return K * K * W;
+  return is_f64 ? pivot_scratch<PivotTiling<double>::S>(W)
+                : pivot_scratch<PivotTiling<float>::S>(W);
 }
 
 extern "C" int thomas_solve_f64(const void* lo, const void* di, const void* up,

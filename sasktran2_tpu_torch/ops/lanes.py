@@ -5,19 +5,21 @@ Matrix operands are ``[..., N, M, W]`` with the wavelength axis W last;
 "mm"/"mv" contract the inner matrix dims and broadcast everything else.
 
 Two functions here have a hand-written CUDA kernel, and this module holds
-their dispatch. It mirrors the JAX package's gates (``lanes.py:338-344``,
-``:461-479``) as shape rules:
+their dispatch:
 
-* ``lane_block_thomas_solve``: a ``[P, K, K, W]`` system with K <= 24
+* ``lane_block_thomas_solve``: a ``[P, K, K, W]`` system with K <= 48
   goes to ``thomas_cuda.thomas_solve``, which launches the CUDA kernel
-  for a CUDA tensor and runs its plain PyTorch twin for a CPU tensor.
-  K > 24 takes the torch-op path, where the blocks are solved by
-  ``torch.linalg.solve``, as the reference solves them with
-  ``jnp.linalg.solve``. That path is the port of the reference's own scan
-  ``_thomas_forward`` at K > 24 (``lanes.py:403-433``), which the
-  polarized solver takes at 16 streams (2K = 48): the reference has no
-  Pallas kernel there, so neither does the port. It is not a fallback
-  from a kernel.
+  for a CUDA tensor and runs its plain PyTorch twin for a CPU tensor. At
+  K <= 24 the kernel is the port of the reference's Pallas kernel (its
+  gate ``_pallas_thomas_ok``, ``lanes.py:461-479``); at 24 < K <= 48 (the
+  polarized solver's K = 48 at 16 streams) a pivoting branch of the same
+  kernel computes what the reference's scan ``_thomas_forward``
+  (``lanes.py:403-433``) computes there, each block solved with partial
+  pivoting as ``jnp.linalg.solve`` solves it. The reference keeps those
+  shapes off its kernel only for TPU reasons (the Mosaic compile of the
+  unrolled K-pivot elimination at K = 40, VMEM at K = 48), which the H100
+  does not share. K > 48 (which no configuration of the port reaches)
+  takes the torch-op loop, counted in ``TORCH_OP_THOMAS_CALLS_BY_K``.
 * ``lane_jacobi_eigh_scan``: a 4-D ``[P, n, n, W]`` matrix whose padded
   order is at most 32 goes to ``jacobi_cuda.jacobi_eigh`` (kernel on CUDA,
   plain twin on the CPU); any other shape takes the plain sweep loop.
@@ -30,10 +32,13 @@ from __future__ import annotations
 
 import torch
 
-THOMAS_K_MAX = 24
+# the Thomas kernel's domain; above GAUSS_UNPIVOTED_K_MAX its blocks are
+# solved with partial pivoting, as the reference solves them
+THOMAS_K_MAX = 48
+GAUSS_UNPIVOTED_K_MAX = 24
 JACOBI_N_MAX = 32
 
-# block-Thomas solves that took the torch-op loop (K > 24), per block size
+# block-Thomas solves that took the torch-op loop (K > 48), per block size
 # K: the counterpart of the kernel's ``thomas_cuda.thomas_solve.launches_by_k``
 TORCH_OP_THOMAS_CALLS_BY_K = {}
 
@@ -100,7 +105,7 @@ def lane_gauss_solve(a, b):
     the reference does at ``lanes.py:129-133``.
     """
     K = a.shape[-2]
-    if K > THOMAS_K_MAX:
+    if K > GAUSS_UNPIVOTED_K_MAX:
         at = torch.movedim(a, -1, -3)
         bt = torch.movedim(b, -1, -3)
         return torch.movedim(torch.linalg.solve(at, bt), -3, -1)
@@ -202,7 +207,7 @@ def lane_jacobi_eigh_scan(a, sweeps: int | None = None):
 
 def _thomas_batched(lo, di, up, r):
     """The solve behind both the primal and the adjoint of
-    ``lane_block_thomas_solve``: the Thomas kernel's domain (K <= 24) goes
+    ``lane_block_thomas_solve``: the Thomas kernel's domain (K <= 48) goes
     to ``thomas_cuda.thomas_solve``; larger blocks to the torch-op loop."""
     from . import _build, thomas_cuda
 

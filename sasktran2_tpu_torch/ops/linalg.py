@@ -112,7 +112,8 @@ def block_tridiag_solve(lower, diag, upper, rhs):
     lower/diag/upper [..., P, K, K], rhs [..., P, K]; leading batch shapes
     broadcast. The batch is flattened onto the minor axis and solved by
     ``lanes.lane_block_thomas_solve``: the Thomas kernel on the card for
-    K <= 24, the torch-op loop above that, with the linear-system adjoint.
+    K <= 48 (pivoting above 24), the torch-op loop above that, with the
+    linear-system adjoint.
     The reference's block cyclic reduction (its route from P >= 8) is the
     same function, computed in log2 P levels for the TPU; in float64 the
     two agree to roundoff and it is not ported.

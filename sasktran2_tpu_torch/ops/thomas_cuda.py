@@ -5,10 +5,17 @@ Replaces the Pallas TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 forward elimination of ``lo[p] x[p-1] + di[p] x[p] + up[p] x[p+1] = r[p]``
 then back substitution, for lo/di/up ``[P, K, K, W]`` and r ``[P, K, W]``
 with the wavelength axis last. ``csrc/thomas.cu`` runs both in one launch,
-one warp per wavelength lane, the lane's rows split over the warp's
-threads; its header says what bounds it. The scratch buffers c and y
-keep their [P, K, K, W] and [P, K, W] sizes but hold the kernel's
-lane-major layout.
+in one of two branches; its header says what bounds each:
+
+* K <= 24 ("v3"): one warp per wavelength lane, the lane's rows split over
+  the warp's threads, Gauss-Jordan without pivoting as the Pallas kernel.
+  The scratch buffers c and y keep their [P, K, K, W] and [P, K, W] sizes
+  but hold the kernel's lane-major layout.
+* 24 < K <= 48 (the polarized 16-stream solver's K = 48): Gauss-Jordan
+  with partial pivoting, as the JAX package's scan solves those blocks
+  (``jnp.linalg.solve``, ``sasktran2_tpu/ops/lanes.py:113-133``), each
+  lane's system in the registers of 64 (f32) or 128 (f64) threads; c is
+  its scratch for c[p] | y[p], sized by ``thomas_scratch_per_layer``.
 
 ``thomas_solve`` launches the kernel for a CUDA tensor and runs
 ``thomas_solve_plain`` (the scan loop of the reference's
@@ -23,16 +30,27 @@ import ctypes
 import torch
 
 from . import _build
-from .lanes import THOMAS_K_MAX, lane_gauss_solve, lane_mm, lane_mv
+from .lanes import (
+    GAUSS_UNPIVOTED_K_MAX,
+    THOMAS_K_MAX,
+    lane_gauss_solve,
+    lane_mm,
+    lane_mv,
+)
 
 _SIGNATURE = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 _FUNCS = {torch.float32: "thomas_solve_f32", torch.float64: "thomas_solve_f64"}
+# every function of the library; thomas_scratch_per_layer(K, W, is_f64) is
+# the element count of the scratch c for one layer
+_SIGNATURES = {**{f: _SIGNATURE for f in _FUNCS.values()},
+               "thomas_scratch_per_layer": (ctypes.c_int,) * 3}
 
 
 def thomas_solve_plain(lo, di, up, r):
     """Forward elimination + back substitution as a loop over the layer
-    axis (-4), each layer an unpivoted Gauss-Jordan solve of
-    ``(di - lo c_prev) [c | y] = [up | r - lo y_prev]``. Returns x
+    axis (-4), each layer a solve of ``(di - lo c_prev) [c | y] =
+    [up | r - lo y_prev]`` by ``lane_gauss_solve`` (unpivoted Gauss-Jordan
+    at K <= 24, pivoted ``torch.linalg.solve`` above). Returns x
     [..., P, K, W]."""
     P = di.shape[-4]
     K = di.shape[-2]
@@ -58,9 +76,9 @@ def thomas_solve_plain(lo, di, up, r):
 
 
 def thomas_solve(lo, di, up, r):
-    """Solve [P, K, K, W] x [P, K, W] -> x [P, K, W]; K <= 24, float32 or
-    float64. CUDA tensors launch ``csrc/thomas.cu``; CPU tensors run the
-    plain twin."""
+    """Solve [P, K, K, W] x [P, K, W] -> x [P, K, W]; K <= 48, float32 or
+    float64. CUDA tensors launch ``csrc/thomas.cu`` (the pivoting branch
+    at K > 24); CPU tensors run the plain twin."""
     if not di.is_cuda:
         return thomas_solve_plain(lo, di, up, r)
     P, K, K2, W = di.shape
@@ -78,10 +96,12 @@ def thomas_solve(lo, di, up, r):
         msg = "thomas kernel: lo/di/up shapes differ"
         raise ValueError(msg)
     lo, di, up, r = (t.contiguous() for t in (lo, di, up, r))
-    c = torch.empty_like(di)
-    y = torch.empty_like(r)
+    lib = _build.load("thomas", _SIGNATURES)
+    per_layer = lib.thomas_scratch_per_layer(K, W, int(di.dtype == torch.float64))
+    c = torch.empty(P * per_layer, dtype=di.dtype, device=di.device)
+    # y is v3's; the pivoting branch keeps y[p] in c
+    y = torch.empty_like(r) if K <= GAUSS_UNPIVOTED_K_MAX else c
     x = torch.empty_like(r)
-    lib = _build.load("thomas", {f: _SIGNATURE for f in _FUNCS.values()})
     with torch.cuda.device(di.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _FUNCS[di.dtype])(

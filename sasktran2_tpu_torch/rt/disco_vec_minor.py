@@ -9,10 +9,10 @@ greek-coefficient contraction uses four static host tables, one per greek
 (a1, a2, a3, b1), built by ``build_vector_minor_tables``.
 
 The eigensolve runs at n = K (the Jacobi kernel at n = 24 for 16 streams,
-n = 6 for 4 streams) and the boundary-value problem at 2K: the Thomas
-kernel takes 2K <= 24 (4 streams: K = 12); at 16 streams the 48 x 48
-blocks take the torch-op loop with ``torch.linalg.solve``, as the
-reference takes its scan there (``ops/lanes.py`` holds that dispatch).
+n = 6 for 4 streams) and the boundary-value problem at 2K on the Thomas
+kernel: unpivoted at 2K <= 24 (4 streams: K = 12), and at 16 streams the
+48 x 48 blocks with partial pivoting, as the reference's scan solves them
+(``ops/lanes.py`` holds that dispatch).
 
 Scope: solar beam source and a Lambertian surface, as the reference's
 fast path. Shapes: dtau/omega [P, W]; a1/a2/a3/b1 [L, P, W]; albedo/f0

@@ -26,8 +26,8 @@ layers) and cos_sza = 0.6; all but the thermal ones use a US76 + Rayleigh
   ``pol3_4str_1k``: ``smoke_case`` with ``num_stokes = 3`` at 4 streams
   (eigensolves of n = 6, BVP blocks of K = 12).
 * ``pol16_case``: the same at 16 streams (n = 24; K = 48 blocks, which
-  the Thomas kernel does not take: the torch-op loop, as the reference's
-  scan).
+  the Thomas kernel's pivoting branch solves, as the reference's scan
+  solves them with a pivoted solve).
 * ``limbpol16_case``: ``limb_case`` with ``num_stokes = 3``: exact
   polarized single scatter and the vector DO source on a 2-point
   solar-zenith grid, at ``LIMBPOL_NUM_LOS`` tangent altitudes from 10 to

@@ -197,8 +197,9 @@ def test_mesh_split_of_2d_and_so(name):
 
 def test_shared_state_under_threads():
     """What the ``mesh=`` threads share: a launch count (here the torch-op
-    block-Thomas count, which the CPU increments under the same lock as the
-    kernels' counts) loses no update, and a 2D operator set is built once
+    block-Thomas count at K = 52, above the Thomas kernel's domain, which
+    the CPU increments under the same lock as the kernels' counts) loses no
+    update, and a 2D operator set is built once
     per (device, dtype) however many threads ask for it at once; with a
     switch interval short enough to interleave them."""
     import sys
@@ -207,7 +208,7 @@ def test_shared_state_under_threads():
     from sasktran2_tpu_torch.ops import lanes
     from sasktran2_tpu_torch.rt import raytrace2d, singlescatter
 
-    K, calls, threads = 26, 30, 16
+    K, calls, threads = 52, 30, 16
     rng = np.random.default_rng(1)
     di = torch.tensor(rng.normal(size=(2, K, K, 1))) + 8.0 * torch.eye(
         K, dtype=torch.float64)[..., None]

@@ -657,6 +657,7 @@ TEST_MODULES = (
     "test_torch_successive",
     "test_torch_successive_engine",
     "test_torch_thermal",
+    "test_torch_thomas48",
     "test_torch_twostream",
     "test_torch_viewinggeo_containers",
 )

@@ -24,14 +24,11 @@ then profiles one ``calculate_radiance`` call with Jacobians and one
 without under ``torch.profiler``. For each it prints the wall time, the
 device time summed over kernels and copies, the device busy share (device
 time / wall time), the number of device kernels, the launches of both
-CUDA kernels (in all and per block size K or matrix order n), the
-SO transport steps (``rt.successive.transport_step.calls``), the
-block-Thomas solves that take the torch-op loop (K > 24: the polarized
-16-stream BVP; ``ops.lanes.TORCH_OP_THOMAS_CALLS_BY_K``) with the sum of
-the kernel time launched inside that loop and its share of the call's
-device time, and the operators with the most self device time. Device
-time is kernel and copy time: the ``record_function`` span on the
-device's track is left out of every sum, since it also spans idle gaps. Then, without the profiler, one warm call with
+CUDA kernels (in all and per block size K or matrix order n; the
+polarized 16-stream BVP is the Thomas kernel at K = 48), the SO transport
+steps (``rt.successive.transport_step.calls``), and the operators with
+the most self device time. Device time is kernel and copy time. Then,
+without the profiler, one warm call with
 and one without Jacobians give the Jacobian rows' share of the call, and
 split it on the host clock (each part ending in a device synchronize):
 the atmosphere's constituent pipeline (``internal_object``), the device
@@ -68,20 +65,11 @@ def _device_us(evt):
     )
 
 
-TORCH_OP_THOMAS = "thomas_torch_op_loop"
-
-
-def _annotation(e):
-    # a record_function span on the device's track: it spans its kernels
-    # and the idle gaps between them, so it is not kernel time
-    return bool(getattr(e, "is_user_annotation", False))
-
-
 def profile_call(engine, atmo, label, trace_path=None, top=15):
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from sasktran2_tpu_torch.ops import jacobi_cuda, lanes, thomas_cuda
+    from sasktran2_tpu_torch.ops import jacobi_cuda, thomas_cuda
     from sasktran2_tpu_torch.rt import successive
 
     successive.transport_step.calls = 0
@@ -89,31 +77,18 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
     thomas_cuda.thomas_solve.launches_by_k = {}
     jacobi_cuda.jacobi_eigh.launches = 0
     jacobi_cuda.jacobi_eigh.launches_by_n = {}
-    lanes.TORCH_OP_THOMAS_CALLS_BY_K.clear()
-    plain = thomas_cuda.thomas_solve_plain
-
-    def annotated(*args):
-        # the solver reaches the torch-op loop only for K > 24 on the card
-        with record_function(TORCH_OP_THOMAS):
-            return plain(*args)
-
-    thomas_cuda.thomas_solve_plain = annotated
     torch.cuda.synchronize()
-    try:
-        with profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        ) as prof:
-            t0 = time.perf_counter()
-            engine.calculate_radiance(atmo)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        thomas_cuda.thomas_solve_plain = plain
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        engine.calculate_radiance(atmo)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     events = prof.events()
     kernels = [
         e for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
-        and not _annotation(e)
     ]
     device_s = sum(e.device_time_total for e in kernels) / 1e6
     print(f"[{label}] wall {wall:.4f} s (profiler on), device time "
@@ -125,21 +100,7 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
           f"{jacobi_cuda.jacobi_eigh.launches} "
           f"{jacobi_cuda.jacobi_eigh.launches_by_n}, SO transport steps "
           f"{successive.transport_step.calls}", flush=True)
-    loops = [e for e in events if e.name == TORCH_OP_THOMAS
-             and e.device_type == torch.autograd.DeviceType.CPU]
-    if loops:
-        # the host-side range: its device time is the sum of the kernels
-        # launched inside it
-        host_ms = sum(e.cpu_time_total for e in loops) / 1e3
-        kernel_s = sum(e.device_time_total for e in loops) / 1e6
-        print(f"[{label}] block-Thomas through the torch-op loop (K > 24): "
-              f"{dict(lanes.TORCH_OP_THOMAS_CALLS_BY_K)} solves per K; "
-              f"kernel time inside the loop {kernel_s:.4f} s "
-              f"({1e3 * kernel_s / len(loops):.3f} ms per solve), "
-              f"{100 * kernel_s / device_s:.1f}% of the call's device time; "
-              f"host {host_ms:.3f} ms in all", flush=True)
-    averages = [e for e in prof.key_averages() if not _annotation(e)]
-    rows = sorted(averages, key=_device_us, reverse=True)[:top]
+    rows = sorted(prof.key_averages(), key=_device_us, reverse=True)[:top]
     for e in rows:
         print(f"    {_device_us(e) / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
     if trace_path:
