@@ -191,6 +191,38 @@ each of 16-19 must launch K1 and K3 at the sizes named.
     tolerance against the unsharded call on the card, the kernels
     launched only by the card's block, and the per-device tables (SO
     plans, 2D operators) built on both devices (``phase_mesh``).
+28. The web layer and the test utilities (``phase_web_and_test_util``).
+    (a) A ``file://`` tree under a temporary directory holds
+    ``scenarios.web_cross_section`` as an ``.npz`` at
+    ``v_latest/<scenarios.WEB_KEY>`` and in a zip; through
+    ``database.StandardDatabase`` its ``load_ds`` is bit-equal to the
+    in-memory table, the cached file to the served one, and a second
+    ``path()`` fetches nothing. An ``OpticalDatabaseGenericAbsorber`` of
+    it, as a ``VMRAltitudeAbsorber``, goes into ground16 (W = 1024, f32,
+    Jacobians, on the card): radiance and every ``wf_*`` equal to the
+    same absorber built from the in-memory table (the largest difference
+    printed; the inputs are identical). ``ZipWebDatabase`` extracts the
+    zip, and a second ``load()`` fetches nothing and leaves the archive's
+    mtime as it was. Every URL opened must have the ``file`` scheme.
+    (b) ``test_util.wf.numeric_wf`` and ``validate_wf(wf_dim="altitude",
+    decimal=5)`` in float64 at W = 1 (``scenarios.fd16_case``: 41
+    levels on 0-60 km, fractional change 1e-3, as
+    ``tests/test_polarized_engine.py:168-173`` does): ground16's
+    configuration for ``total_extinction`` and ``ssa`` (K1 K = 16, K3
+    n = 8) and pol16's for ``total_extinction``, I, Q and U (the K = 48
+    pivoting branch, K3 n = 24), each through the kernels' adjoints in
+    the base call. Then ground16's and pol16's ``total_extinction`` on
+    the cells' own 0-100 km at the same 41 levels, where the top levels'
+    central differences meet float64 roundoff: the worst difference per
+    level, decimal 5 required up to 60 km and decimal 4 at every level,
+    the levels that miss decimal 5 named; and again at a tenfold step
+    (``scenarios.FD_CELL_STEP``), whose roundoff is tenfold smaller,
+    at decimal 5 at every level. The numeric WF must be nonzero
+    wherever the analytic one exceeds 1e-3 of its largest magnitude
+    (``validate_wf`` skips zeros). Printed: the worst difference over
+    the largest magnitude along altitude, per WF and Stokes component,
+    the launches per kernel instance (no torch-op solve) and the seconds
+    of each check.
 
 Every phase prints its end time since the script started.
 
@@ -1716,6 +1748,260 @@ def phase_mesh(sk, label):
     return split
 
 
+def urls_opened_checked():
+    """Replace ``urllib.request.urlopen`` (``urlretrieve`` goes through
+    it) by one that fails the script on any URL whose scheme is not
+    ``file`` and lists those it opens. Returns (the list, a function
+    that puts the original back)."""
+    import urllib.parse
+    import urllib.request
+
+    opened = []
+    real = urllib.request.urlopen
+
+    def urlopen(url, *args, **kwargs):
+        name = url if isinstance(url, str) else url.full_url
+        check(urllib.parse.urlparse(name).scheme == "file",
+              f"phase 28 opened {name!r}, not a file:// URL")
+        opened.append(name)
+        return real(url, *args, **kwargs)
+
+    urllib.request.urlopen = urlopen
+
+    def restore():
+        urllib.request.urlopen = real
+
+    return opened, restore
+
+
+def web_layer(sk, label, tmp, opened):
+    """Phase 28 (a) under the directory ``tmp``; returns the launch
+    counts of the call with the web-served absorber."""
+    import zipfile
+
+    import torch
+    from sasktran2_tpu_torch import scenarios
+    from sasktran2_tpu_torch.optical.database import (
+        OpticalDatabaseGenericAbsorber,
+    )
+
+    table = scenarios.web_cross_section()
+    wl_xs = table["coords"]["wavelength_nm"]
+    dims, xs = table["data_vars"]["xs"]
+    tree, root = tmp / "tree", tmp / "db"
+    served = tree / "v_latest" / scenarios.WEB_KEY
+    served.parent.mkdir(parents=True)
+    np.savez(served, coord_wavelength_nm=wl_xs, xs=xs,
+             dims_xs=np.array(dims))
+    with zipfile.ZipFile(tree / "bundle.zip", "w") as zf:
+        zf.write(served, scenarios.WEB_KEY)
+
+    db = sk.database.StandardDatabase(base_url=tree.as_uri(), db_root=root)
+    t0 = time.perf_counter()
+    loaded = db.load_ds(scenarios.WEB_KEY)
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    cached = root / scenarios.WEB_KEY
+    ldims, lxs = loaded["data_vars"]["xs"]
+    check(cached.read_bytes() == served.read_bytes(),
+          "the cached file differs from the served one")
+    check(tuple(ldims) == tuple(dims) and np.array_equal(lxs, xs)
+          and np.array_equal(loaded["coords"]["wavelength_nm"], wl_xs),
+          "StandardDatabase.load_ds differs from the in-memory table")
+    n_open = len(opened)
+    check(db.path(scenarios.WEB_KEY) == cached and len(opened) == n_open,
+          "a second StandardDatabase.path() fetched again")
+    print(f"[{label}] web: StandardDatabase fetched {scenarios.WEB_KEY} "
+          f"({cached.stat().st_size} bytes) from the file:// tree and "
+          f"loaded it in {fetch_ms:.1f} ms; cached bytes equal to the "
+          f"served ones, the table bit-equal to the in-memory one; a "
+          f"second path() opened no URL", flush=True)
+
+    wl = scenarios.smoke_wavelengths()
+    config, geometry, viewing, atmo = scenarios.smoke_case(sk, "float32", wl)
+    alts = geometry.altitudes()
+    engine = sk.Engine(config, geometry, viewing)  # no device: the card
+    check(engine._device.type == "cuda", "the engine did not default to cuda")
+
+    def call(ds):
+        atmo["web_absorber"] = sk.constituent.VMRAltitudeAbsorber(
+            OpticalDatabaseGenericAbsorber(db=ds), alts,
+            scenarios.web_vmr(alts))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine_outputs(engine.calculate_radiance(atmo))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_launches()
+    out_web, web_s = call(loaded)
+    launches = read_launches()
+    out_mem, mem_s = call(table)
+    check(set(out_web) == set(out_mem) and "wf_web_absorber" in out_web,
+          f"web: outputs {sorted(out_web)}")
+    rad = out_web["radiance"]
+    check(rad.shape == (len(wl), 4, 1) and bool((rad > 0).all())
+          and all(np.isfinite(v).all() for v in out_web.values()),
+          "web: non-finite or non-positive output")
+    diffs = {k: float(np.abs(out_web[k] - out_mem[k]).max()
+                      / max(float(np.abs(out_mem[k]).max()), 1e-300))
+             for k in out_mem}
+    worst = max(diffs, key=diffs.get)
+    print(f"[{label}] web: ground16 + the web-served absorber W={len(wl)} "
+          f"f32 with Jacobians ({len(out_web) - 1} wf_*): {web_s:.3f} s, the "
+          f"in-memory table's call {mem_s:.3f} s; largest difference over "
+          f"the variable's largest magnitude {diffs[worst]:.3e} ({worst}); "
+          f"exactly equal: {all(v == 0.0 for v in diffs.values())}; "
+          f"kernel launches {launches}", flush=True)
+    check(all(v == 0.0 for v in diffs.values()), "web: the web-served "
+          "absorber's outputs differ from the in-memory one's")
+    for name, key, size in (("thomas", "thomas_by_k", 16),
+                            ("jacobi", "jacobi_by_n", 8)):
+        check(launches[key].get(size, 0) > 0,
+              f"web: the {name} kernel at {size} was not launched")
+    check(not launches["torch_op_thomas_by_k"], "web: a torch-op solve")
+
+    zdb = sk.database.ZipWebDatabase((tree / "bundle.zip").as_uri(),
+                                     db_root=root / "zip")
+    archive = zdb.load()
+    extracted = root / "zip" / scenarios.WEB_KEY
+    check(extracted.read_bytes() == served.read_bytes(),
+          "ZipWebDatabase: the extracted file differs from the served one")
+    mtime, n_open = archive.stat().st_mtime_ns, len(opened)
+    check(zdb.load() == archive and archive.stat().st_mtime_ns == mtime
+          and len(opened) == n_open,
+          "ZipWebDatabase: a second load() fetched again")
+    schemes = sorted({u.split(":", 1)[0] for u in opened})
+    print(f"[{label}] web: ZipWebDatabase extracted {scenarios.WEB_KEY} "
+          f"(equal bytes); a second load() opened no URL and left the "
+          f"archive's mtime as it was; URLs opened in all: {len(opened)}, "
+          f"schemes {schemes}", flush=True)
+    return launches
+
+
+def fd_check(sk, label, num_stokes, variables, top_m=None, step=None):
+    """Phase 28 (b): ``numeric_wf`` and ``validate_wf`` on
+    ``scenarios.fd16_case`` (levels up to ``top_m``, default
+    ``scenarios.FD_TOP_M``; fractional change ``step``, default
+    ``scenarios.FD_FRACTIONAL_CHANGE``) in float64 on the card for each
+    storage variable of ``variables``; returns the launch counts and
+    seconds. The gate is ``validate_wf`` at decimal 5, and on a grid that
+    goes above ``FD_TOP_M`` the worst difference is printed per level.
+    There, at the default step, the top levels' central differences meet
+    float64 roundoff: the levels up to ``FD_TOP_M`` are held at decimal
+    5, every level at decimal 4, and the levels that miss decimal 5 are
+    named."""
+    from sasktran2_tpu_torch import scenarios
+    from sasktran2_tpu_torch.test_util import wf
+
+    top_m = scenarios.FD_TOP_M if top_m is None else top_m
+    step = scenarios.FD_FRACTIONAL_CHANGE if step is None else step
+    what = ("pol16" if num_stokes == 3 else "ground16") + \
+        f" 0-{top_m / 1e3:g} km step {step:g}"
+    config, geometry, viewing, atmo = scenarios.fd16_case(
+        sk, num_stokes, top_m=top_m)
+    engine = sk.Engine(config, geometry, viewing)  # no device: the card
+    check(engine._device.type == "cuda", "the engine did not default to cuda")
+    nalt = len(geometry.altitudes())
+    reset_launches()
+    t0 = time.perf_counter()
+    for var in variables:
+        name = {"total_extinction": "wf_extinction", "ssa": "wf_ssa"}[var]
+        t1 = time.perf_counter()
+        ds = wf.numeric_wf(getattr(atmo.storage, var)[:, 0], step, engine,
+                           atmo, name)
+        dt = time.perf_counter() - t1
+        a = ds[name].to_numpy()
+        n = ds[name + "_numeric"].to_numpy()
+        dims = ds[name].dims
+        check(a.shape == (nalt, 1, 4, num_stokes)
+              and np.isfinite(a).all() and np.isfinite(n).all(),
+              f"FD {what} {name}: shape {a.shape} or non-finite values")
+        ax = dims.index("altitude")
+        scale = np.abs(a).max(axis=ax, keepdims=True)
+        rel = np.abs(a - n) / np.where(scale == 0, 1e99, scale)
+        per_stokes = [float(rel[..., s].max()) for s in range(num_stokes)]
+        significant = np.abs(a) > 1e-3 * np.abs(a).max()
+        nonzero = bool((n[significant] != 0).all())
+        print(f"[{label}] FD {what} f64 W=1 A={nalt} {name}: "
+              f"{2 * nalt + 1} calls in {dt:.2f} s; worst |analytic - "
+              f"numeric| / max over altitude per Stokes component "
+              f"{['%.3e' % v for v in per_stokes]} (decimal 5: < 1.5e-5); "
+              f"numeric nonzero where |analytic| > 1e-3 max: {nonzero} "
+              f"({int(significant.sum())} of {a.size})", flush=True)
+        if top_m > scenarios.FD_TOP_M:
+            alts = geometry.altitudes()
+            per_level = np.moveaxis(rel, ax, 0).reshape(nalt, -1).max(axis=1)
+            low = alts <= scenarios.FD_TOP_M
+            missed = [f"{z / 1e3:g} km {r:.3e}"
+                      for z, r in zip(alts, per_level) if r >= 1.5e-5]
+            print(f"[{label}] FD {what} {name} per level (km: worst): "
+                  + ", ".join(f"{z / 1e3:g}: {r:.3e}"
+                              for z, r in zip(alts, per_level)), flush=True)
+            print(f"[{label}] FD {what} {name}: worst up to "
+                  f"{scenarios.FD_TOP_M / 1e3:g} km {per_level[low].max():.3e}"
+                  f", above it {per_level[~low].max():.3e}; levels that miss "
+                  f"decimal 5: {missed or 'none'}; decimal 4 (< 1.5e-4) at "
+                  f"every level: {bool(per_level.max() < 1.5e-4)}", flush=True)
+        gate = 5
+        if top_m > scenarios.FD_TOP_M and step == \
+                scenarios.FD_FRACTIONAL_CHANGE:
+            check(per_level[low].max() < 1.5e-5,
+                  f"FD {what} {name}: decimal 5 missed at or below "
+                  f"{scenarios.FD_TOP_M / 1e3:g} km")
+            gate = 4
+        try:
+            wf.validate_wf(ds[name], ds[name + "_numeric"],
+                           wf_dim="altitude", decimal=gate)
+        except AssertionError as e:
+            fail(f"FD {what} {name}: validate_wf at decimal {gate}: {e}")
+        check(nonzero, f"FD {what} {name}: a numeric WF is 0 where the "
+              "analytic one is significant")
+    launches = read_launches()
+    total = time.perf_counter() - t0
+    print(f"[{label}] FD {what}: {total:.2f} s; kernel launches "
+          f"{launches}", flush=True)
+    k, n = (48, 24) if num_stokes == 3 else (16, 8)
+    check(launches["thomas_by_k"].get(k, 0) > 0
+          and launches["jacobi_by_n"].get(n, 0) > 0,
+          f"FD {what}: K1 at K = {k} or K3 at n = {n} was not launched")
+    check(not launches["torch_op_thomas_by_k"], f"FD {what}: a torch-op solve")
+    return launches, total
+
+
+def phase_web_and_test_util(sk, label):
+    """Phase 28: the web layer (a) and the FD check of the WFs (b); see
+    the module's docstring. Returns the launch counts of (a), and of (b)
+    for ground16 and pol16, and of (b) on 0-100 km by name."""
+    import tempfile
+    from pathlib import Path
+
+    opened, restore = urls_opened_checked()
+    try:
+        with tempfile.TemporaryDirectory(prefix="sk_web_") as d:
+            web = web_layer(sk, label, Path(d), opened)
+    finally:
+        restore()
+    from sasktran2_tpu_torch import scenarios
+
+    t0 = time.perf_counter()
+    ground, ground_s = fd_check(sk, label, 1, ("total_extinction", "ssa"))
+    pol, pol_s = fd_check(sk, label, 3, ("total_extinction",))
+    # the cells' own 0-100 km at the same 41 levels, at the step of the
+    # JAX tests and at a tenfold step, whose roundoff is tenfold smaller
+    cell, cell_s = {}, []
+    for stokes, what in ((1, "ground16"), (3, "pol16")):
+        for step in (scenarios.FD_FRACTIONAL_CHANGE,
+                     scenarios.FD_CELL_STEP):
+            key = f"fd_{what}_f64_0_100km_step{step:g}"
+            cell[key], dt = fd_check(sk, label, stokes, ("total_extinction",),
+                                     scenarios.FD_CELL_TOP_M, step)
+            cell_s.append(round(dt, 2))
+    print(f"[{label}] FD checks: ground16 {ground_s:.2f} s, pol16 "
+          f"{pol_s:.2f} s; on 0-{scenarios.FD_CELL_TOP_M / 1e3:g} km "
+          f"{cell_s} s; {time.perf_counter() - t0:.2f} s in all", flush=True)
+    return web, ground, pol, cell
+
+
 def capture_engine_inputs(sk, build, wl, module=None, keep=None):
     """The eigensolve and block-Thomas inputs of an engine case's
     radiance-only f32 call on the card, as ``module`` (default: the
@@ -2237,6 +2523,11 @@ def main():
     mesh_launches = phase_mesh(sk, label)
     phase_done(label, 27)
 
+    # --- phase 28: the web layer and the test utilities ----------------------
+    web_launches, fd_ground_launches, fd_pol_launches, fd_cell_launches = (
+        phase_web_and_test_util(sk, label))
+    phase_done(label, 28)
+
     check_no_jax(label)
     by_path = {
         "ground16": launches, "limb16": limb_launches, "flux16": flux_launches,
@@ -2248,6 +2539,8 @@ def main():
         "solimb16_doinit": sodo_launches, "o2a16": o2a_launches,
         "dayglowlimb16": dayglow_launches, "amf16": amf_launches,
         "tomo2d": tomo_launches, "ground16_mesh2": mesh_launches,
+        "web_ground16": web_launches, "fd_ground16_f64": fd_ground_launches,
+        "fd_pol16_f64": fd_pol_launches, **fd_cell_launches,
     }
 
     def instance(kernel, size, main):

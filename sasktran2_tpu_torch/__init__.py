@@ -61,6 +61,7 @@ from . import (
     photchem,
     solar,
     spectroscopy,
+    test_util,
     units,
 )
 from .engine import Engine
@@ -108,5 +109,6 @@ __all__ = [
     "photchem",
     "solar",
     "spectroscopy",
+    "test_util",
     "units",
 ]

@@ -3,9 +3,11 @@
 Counterpart of ``sasktran2_tpu/database/__init__.py``: the local cache
 directory (``database_root``, under the port's own root, see
 ``appconfig``) and ``CachedDatabase``. ``MieDatabase`` generates its
-tables on the device; ``HITRANLineDatabase`` reads local line files. The
-JAX package's download helpers (``database/web.py``) are not ported: the
-port reads only local files.
+tables on the device; ``HITRANLineDatabase`` reads local line files.
+``web.py`` fetches and caches files through ``urllib`` (``WebDatabase``,
+``ZipWebDatabase``, ``StandardDatabase``, ``download_zenodo_record``), so
+a ``file://`` mirror serves it as ``https://`` does; a file already in the
+cache is never fetched again.
 """
 
 from __future__ import annotations
@@ -43,16 +45,10 @@ class CachedDatabase:
             shutil.rmtree(self._path)
 
 
-# database/web.py's names: they download
-_DOWNLOADS = (
-    "WebDatabase", "ZipWebDatabase", "StandardDatabase",
-    "download_zenodo_record",
-)
-
-
 def __getattr__(name):
     # lazy: database.mie and database.hitran_line import the optical
-    # layer, which imports this package
+    # layer, which imports this package (web.py imports CachedDatabase
+    # from here)
     if name == "MieDatabase":
         from .mie import MieDatabase
 
@@ -61,12 +57,10 @@ def __getattr__(name):
         from .hitran_line import HITRANLineDatabase
 
         return HITRANLineDatabase
-    if name in _DOWNLOADS:
-        msg = (
-            f"{name} (database/web.py) is not ported to the PyTorch "
-            "package: it downloads, and the port reads only local files "
-            "(ROADMAP Queue 1, not ported by design)"
-        )
-        raise NotImplementedError(msg)
+    if name in ("WebDatabase", "ZipWebDatabase", "StandardDatabase",
+                "download_zenodo_record"):
+        from . import web
+
+        return getattr(web, name)
     msg = f"module 'sasktran2_tpu_torch.database' has no attribute {name!r}"
     raise AttributeError(msg)

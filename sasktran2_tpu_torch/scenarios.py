@@ -168,6 +168,27 @@ The 2D cell:
   its ``wf_*`` (each [4,141, W, 40, 1]) at the two wavelengths of
   ``TOMO2D_WF_POSITIONS`` only.
 
+The cases of ``chip_smoke.py``'s phase 28 (the web layer and the
+test utilities):
+
+* ``web_cross_section``: a seeded cross-section table in the port's
+  dataset layout, which the phase serves from a ``file://`` tree through
+  ``database.StandardDatabase`` and adds to ``smoke_case`` as a
+  ``VMRAltitudeAbsorber`` (``WEB_VMR_PEAK`` at ``WEB_VMR_ALTITUDE_M``).
+* ``fd16_case``: the finite-difference check of the analytic weighting
+  functions (``test_util.wf``) at ``smoke_case``'s streams, sources and
+  rays, in float64 at one wavelength, on ``FD_NUM_ALTITUDES`` levels from
+  0 to ``FD_TOP_M``, over ``test_util.default_pure_scattering_atmosphere``
+  (SSA 0.9, albedo 0.3; polarized: ``tests/test_polarized_engine.py``'s
+  Rayleigh a2 and b1). The top is that of the JAX package's polarized FD
+  tests: on 0-100 km the extinction at the top level is 4e-11 / m, and
+  the central difference of either package's float64 radiance there is
+  at its roundoff floor, near or above ``validate_wf``'s decimal-5
+  bound of 1.5e-5 (``tools/fd_residuals.py`` prints it for either
+  package). Phase 28 also runs the extinction's check on the cells' own
+  0 to ``FD_CELL_TOP_M``, printing it per level, at that step and at
+  ``FD_CELL_STEP``, whose roundoff is tenfold smaller.
+
 ``POL16_SOLVER_*`` is the solver-level case of the 16-stream polarized
 check: the JAX package cannot compile its polarized engine at 16 streams
 on the CPU, so ``tools/make_torch_golden.py`` stores the inputs and
@@ -247,6 +268,16 @@ DAYGLOW_O3_M3 = 1.0e14
 DAYGLOW_CO2_M3 = 6.0e17
 DAYGLOW_MONTH = 7.0
 AMF16_BACKGROUND_M1 = 5e-7
+# phase 28: the web-served absorber and the finite-difference WF check
+WEB_SEED = 14
+WEB_KEY = "cross_sections/seeded/absorber.npz"
+WEB_VMR_PEAK = 8e-6
+WEB_VMR_ALTITUDE_M = 25000.0
+FD_NUM_ALTITUDES = 41
+FD_TOP_M = 60000.0
+FD_CELL_TOP_M = 100000.0
+FD_CELL_STEP = 1e-2
+FD_FRACTIONAL_CHANGE = 1e-3
 # the 2D cell
 GOLDEN_TOMO2D_PATH = os.path.join(DATA, "golden_tomo2d.npz")
 TOMO2D_NUM_ALTITUDES = 101
@@ -281,15 +312,22 @@ def absorber_cross_section():
     a smooth spectrum on a 20 nm grid over 3,900-15,100 nm, the sum of
     eight sinusoids of random amplitude and phase (numpy seed 0) scaled so
     that log10 of the cross section spans -28 to -24."""
-    rng = np.random.default_rng(0)
     wl = np.linspace(3900.0, 15100.0, 561)
+    return wl, _sinusoid_spectrum(0, wl, -28.0, 4.0)
+
+
+def _sinusoid_spectrum(seed, wl, log_lo, log_span):
+    """10 ** (log_lo + log_span * s) on the grid ``wl``, s the sum of
+    eight sinusoids of random amplitude and phase (numpy ``seed``) scaled
+    onto [0, 1]."""
+    rng = np.random.default_rng(seed)
     x = (wl - wl[0]) / (wl[-1] - wl[0])
     s = sum(
         rng.normal() / f * np.sin(2.0 * np.pi * f * x + rng.uniform(0.0, 6.3))
         for f in range(1, 9)
     )
     s = (s - s.min()) / (s.max() - s.min())
-    return wl, 10.0 ** (-28.0 + 4.0 * s)
+    return 10.0 ** (log_lo + log_span * s)
 
 
 def smoke_case(sk, dtype: str, wavelengths_nm, num_stokes=1, nstr=16,
@@ -894,6 +932,57 @@ def amf16_case(sk, dtype: str, wavelengths_nm):
     atmo["background"] = sk.constituent.ManualOpticalProperties(
         extinction=AMF16_BACKGROUND_M1 * np.exp(-alts / 8000.0))
     atmo["amf"] = sk.constituent.AirMassFactor()
+    return config, geometry, viewing, atmo
+
+
+def web_cross_section():
+    """{"coords", "data_vars"} of a seeded absorber: ``xs`` [m^2] on
+    270-810 nm every 0.5 nm, log10 between -25 and -23 from eight
+    sinusoids of random amplitude and phase (numpy seed ``WEB_SEED``)."""
+    wl = np.linspace(270.0, 810.0, 1081)
+    return {"coords": {"wavelength_nm": wl},
+            "data_vars": {"xs": (("wavelength_nm",), _sinusoid_spectrum(
+                WEB_SEED, wl, -25.0, 2.0))}}
+
+
+def web_vmr(altitudes_m):
+    """The web-served absorber's VMR profile: a Gaussian layer."""
+    return WEB_VMR_PEAK * np.exp(
+        -(((np.asarray(altitudes_m) - WEB_VMR_ALTITUDE_M) / 8000.0) ** 2))
+
+
+def fd16_case(sk, num_stokes=1, num_altitudes=FD_NUM_ALTITUDES,
+              dtype="float64", top_m=FD_TOP_M):
+    """(config, geometry, viewing, atmosphere) of the finite-difference WF
+    check: ``smoke_case``'s 16 streams, DO sources and four rays, at one
+    wavelength on ``num_altitudes`` levels from 0 to ``top_m``, over
+    ``test_util.default_pure_scattering_atmosphere`` (raw storage, SSA
+    0.9, albedo 0.3, with derivatives); polarized with the Rayleigh a2
+    and b1 of ``tests/test_polarized_engine.py``."""
+    config = sk.Config(
+        num_streams=16,
+        num_stokes=num_stokes,
+        multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+        single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates,
+        num_singlescatter_moments=16,
+        dtype=dtype,
+    )
+    geometry = sk.Geometry1D(
+        cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
+        altitude_grid_m=np.linspace(0.0, top_m, num_altitudes),
+        geometry_type=sk.GeometryType.PlaneParallel,
+    )
+    viewing = sk.ViewingGeometry()
+    for mu in (0.4, 0.6, 0.8, 1.0):
+        viewing.add_ray(sk.GroundViewingSolar(
+            cos_sza=0.6, relative_azimuth=0.5, cos_viewing_zenith=mu,
+            observer_altitude_m=200000.0,
+        ))
+    atmo = sk.test_util.default_pure_scattering_atmosphere(
+        config, geometry, ssa=0.9, albedo=0.3)
+    if num_stokes == 3:
+        atmo.leg_coeff.a2[2] = 3.0
+        atmo.leg_coeff.b1[2] = np.sqrt(6.0) / 2
     return config, geometry, viewing, atmo
 
 

@@ -553,6 +553,7 @@ VERBATIM_COPIES = [
     "climatology/mipas.py", "optical/refraction.py", "optical/named.py",
     "optical/baum.py", "geometry.py", "viewinggeo/__init__.py",
     "rt/raytrace2d.py", "constituent/vmr_absorber.py",
+    "test_util/scenarios.py",
 ]
 
 

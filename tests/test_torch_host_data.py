@@ -262,10 +262,17 @@ def test_hitran_line_database_matches_jax(roots):
 
 
 def test_download_helpers_stay_refused():
+    """The download helpers, refused until the port had a web layer, now
+    resolve to the port's own ``database/web.py`` (its contracts:
+    ``tests/test_torch_web_database.py``)."""
+    from sasktran2_tpu_torch.database import web
+
     for name in ("WebDatabase", "ZipWebDatabase", "StandardDatabase",
                  "download_zenodo_record"):
-        with pytest.raises(NotImplementedError, match="downloads"):
-            getattr(skt.database, name)
+        got = getattr(skt.database, name)
+        assert got is getattr(web, name)
+        assert got.__module__ == "sasktran2_tpu_torch.database.web"
+        assert got is not getattr(sk.database, name)
 
 
 # --- named absorbers and Baum ice crystals -------------------------------------

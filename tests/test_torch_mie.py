@@ -306,8 +306,14 @@ def test_database_root_is_the_ports_own(tmp_path, monkeypatch):
     monkeypatch.setenv(appconfig.DB_ROOT_ENV, str(tmp_path / "port"))
     assert skt.database.database_root() == tmp_path / "port"
     assert (tmp_path / "port").is_dir()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        skt.database.WebDatabase  # noqa: B018
+    # a WebDatabase with no db_root caches under the port's root
+    src = tmp_path / "server" / "table.txt"
+    src.parent.mkdir()
+    src.write_text("1 2 3")
+    db = skt.database.WebDatabase(src.as_uri(), rel_path="web")
+    assert db.load() == tmp_path / "port" / "web" / "table.txt"
+    assert db.load().read_text() == "1 2 3"
+    assert not (tmp_path / "jax").exists()
 
 
 def test_refractive_indices_equal(tmp_path, monkeypatch):

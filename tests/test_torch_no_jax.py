@@ -13,7 +13,10 @@ absorber and an aerosol from a Mie table generated on the CPU; or a small
 O2 A-band dayglow limb scan from a ``LimbVertical`` container, with a
 HITRAN line file and Yankovsky airglow; or a small 2D tomographic limb
 scan, traced by ``rt/raytrace2d.py``, its wavelengths split over two CPU
-blocks by ``mesh=``), and check that neither ``jax``
+blocks by ``mesh=``; or an absorber whose table ``database.web``'s
+``StandardDatabase`` fetched from a ``file://`` tree; or ``test_util``'s
+finite-difference check of a WF and ``zawada``'s file lookup, which must
+not import ``h5py`` either), and check that neither ``jax``
 nor any ``sasktran2_tpu`` module, nor ``pandas``, is in ``sys.modules``
 and that the host ray tracer was built inside the port. A static pass
 parses every module of the port, and ``chip_smoke.py``, for such imports,
@@ -43,6 +46,75 @@ SCRIPT = textwrap.dedent("""
     from sasktran2_tpu_torch import native
 
     case = sys.argv[1]
+    if case == "web":
+        # database.web: StandardDatabase over a file:// tree in a temporary
+        # directory, its table an absorber of a small engine
+        import tempfile
+        from pathlib import Path
+        from sasktran2_tpu_torch import scenarios as sc
+        from sasktran2_tpu_torch.optical.database import (
+            OpticalDatabaseGenericAbsorber)
+        tmp = Path(tempfile.mkdtemp())
+        table = sc.web_cross_section()
+        dims, xs = table["data_vars"]["xs"]
+        served = tmp / "tree" / "v_latest" / sc.WEB_KEY
+        served.parent.mkdir(parents=True)
+        np.savez(served, coord_wavelength_nm=table["coords"]["wavelength_nm"],
+                 xs=xs, dims_xs=np.array(dims))
+        db = sk.database.StandardDatabase(base_url=(tmp / "tree").as_uri(),
+                                          db_root=tmp / "db")
+        ds = db.load_ds(sc.WEB_KEY)
+        assert (tmp / "db" / sc.WEB_KEY).exists()
+        config = sk.Config(
+            num_streams=4,
+            multiple_scatter_source=sk.MultipleScatterSource.DiscreteOrdinates,
+            single_scatter_source=sk.SingleScatterSource.DiscreteOrdinates)
+        geometry = sk.Geometry1D(
+            cos_sza=0.6, solar_azimuth=0.0, earth_radius_m=6372000.0,
+            altitude_grid_m=np.linspace(0.0, 100000.0, 6),
+            geometry_type=sk.GeometryType.PlaneParallel)
+        viewing = sk.ViewingGeometry()
+        viewing.add_ray(sk.GroundViewingSolar(0.6, 0.5, 0.8, 200000.0))
+        atmo = sk.Atmosphere(geometry, config, wavelengths_nm=[350.0, 600.0])
+        sk.climatology.us76.add_us76_standard_atmosphere(atmo)
+        atmo["rayleigh"] = sk.constituent.Rayleigh()
+        atmo["surface"] = sk.constituent.LambertianSurface(0.3)
+        alts = geometry.altitudes()
+        atmo["web"] = sk.constituent.VMRAltitudeAbsorber(
+            OpticalDatabaseGenericAbsorber(db=ds), alts, sc.web_vmr(alts))
+        engine = sk.Engine(config, geometry, viewing, device="cpu")
+        out = engine.calculate_radiance(atmo)
+        rad = out["radiance"].to_numpy()
+        assert rad.shape == (2, 1, 1) and np.all(rad > 0), rad
+        assert "wf_web" in out
+        print(engine.ray_tracer)
+        print(sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "sasktran2_tpu", "pandas")
+        ))
+        sys.exit(0)
+    if case == "test_util":
+        # test_util: the FD check of a WF at 16 streams on 5 levels, and
+        # zawada's file lookup under an empty database root
+        import tempfile
+        from sasktran2_tpu_torch import scenarios as sc
+        from sasktran2_tpu_torch.test_util import wf, zawada
+        os.environ["SASKTRAN2_TPU_TORCH_DB_ROOT"] = tempfile.mkdtemp()
+        config, geometry, viewing, atmo = sc.fd16_case(sk, num_altitudes=5)
+        engine = sk.Engine(config, geometry, viewing, device="cpu")
+        ds = wf.numeric_wf(atmo.storage.ssa[:, 0], sc.FD_FRACTIONAL_CHANGE,
+                           engine, atmo, "wf_ssa")
+        wf.validate_wf(ds["wf_ssa"], ds["wf_ssa_numeric"],
+                       wf_dim="altitude", decimal=5)
+        assert np.all(ds["wf_ssa_numeric"].to_numpy() != 0)
+        assert zawada.comparison_file() is None
+        assert sk.test_util.test_aerosol_constituent([22000.0])[0] == 1e-7
+        print(engine.ray_tracer)
+        print(sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "sasktran2_tpu", "pandas", "h5py")
+        ))
+        sys.exit(0)
     if case == "2d_mesh":
         from sasktran2_tpu_torch import scenarios
         from sasktran2_tpu_torch.parallel import make_mesh
@@ -221,7 +293,7 @@ SCRIPT = textwrap.dedent("""
 
 @pytest.mark.parametrize("case", ["scalar", "polarized", "flux", "brdf",
                                   "thermal", "generic", "so", "optical",
-                                  "airglow", "2d_mesh"])
+                                  "airglow", "2d_mesh", "web", "test_util"])
 def test_port_never_imports_jax(case):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -656,10 +656,12 @@ TEST_MODULES = (
     "test_torch_spectral_grid",
     "test_torch_successive",
     "test_torch_successive_engine",
+    "test_torch_test_util",
     "test_torch_thermal",
     "test_torch_thomas48",
     "test_torch_twostream",
     "test_torch_viewinggeo_containers",
+    "test_torch_web_database",
 )
 
 
