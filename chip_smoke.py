@@ -11,7 +11,9 @@ final line:
 1. Builds both CUDA kernels from ``sasktran2_tpu_torch/csrc`` with nvcc,
    one nvcc process per source, started together, and prints ptxas's
    registers and stack frame of every instantiation; the Jacobi kernel's
-   shared-memory branch (8 < n <= 32) must have no stack frame.
+   shared-memory branch (8 < n <= 32) must have no stack frame, and the
+   Thomas kernel's f32 pivoting branch (a lane's system in one warp's
+   registers) no spill stores; its f32 and f64 lines are printed apart.
 2. Thomas kernel (f32 and f64) against its plain PyTorch twin and an f64
    truth, at the engine's shape and at the JAX package's test shapes; its
    pivoting branch (24 < K <= 48) the same way on random systems at K =
@@ -273,10 +275,14 @@ def bound(nbytes, flops):
 
 def thomas_bound(P, K, W, itemsize):
     """lo, di, up and r read once, x written once; per (layer, lane) the
-    carry products 2K^3 + 2K^2, the Gauss-Jordan sweep K (2K+1)(2K-1) and
-    the back substitution 2K^2 FLOPs."""
+    least work of the solve, whatever implements it: the carry products
+    lo c[p-1] and lo y[p-1], 2K^3 + 2K^2; the LU factorisation of the
+    K x K block with partial pivoting, K(K-1)/2 + K(K-1)(2K-1)/3; its
+    solve for the K + 1 right-hand sides [up | rhs], (K + 1)(2K^2 - K);
+    and the back substitution x = y - c x, 2K^2 FLOPs."""
     nbytes = (3 * P * K * K * W + 2 * P * K * W) * itemsize
-    flops = P * W * (2 * K**3 + 4 * K * K + K * (2 * K + 1) * (2 * K - 1))
+    lu = K * (K - 1) // 2 + K * (K - 1) * (2 * K - 1) // 3
+    flops = P * W * (2 * K**3 + 4 * K * K + lu + (K + 1) * (2 * K * K - K))
     return bound(nbytes, flops)
 
 
@@ -358,6 +364,12 @@ def ptxas_summary(log_path):
 def stack_frame_bytes(summary_line):
     """The stack frame in bytes from one line of ``ptxas_summary``."""
     m = re.search(r"(\d+) bytes stack frame", summary_line)
+    return int(m.group(1)) if m else None
+
+
+def spill_store_bytes(summary_line):
+    """The spill stores in bytes from one line of ``ptxas_summary``."""
+    m = re.search(r"(\d+) bytes spill stores", summary_line)
     return int(m.group(1)) if m else None
 
 
@@ -2313,6 +2325,7 @@ def main():
         fail(f"kernel build: {e}")
     dt = time.perf_counter() - t0
     shared_branch = []
+    pivot_branch = []
     for name, path in zip(names, paths):
         print(f"[{label}] built {name}: {os.path.relpath(path, HERE)} "
               f"({dt:.1f} s for both)", flush=True)
@@ -2320,6 +2333,19 @@ def main():
             print(f"[{label}]     ptxas {ln}")
             if ln.startswith("jacobi_group_kernel<"):
                 shared_branch.append((ln.split(":")[0], stack_frame_bytes(ln)))
+            if ln.startswith("thomas_pivot_kernel<"):
+                pivot_branch.append(ln)
+    # the pivoting branch (24 < K <= 48) keeps a lane's system in registers
+    for ln in pivot_branch:
+        m = re.search(r"Used (\d+) registers", ln)
+        print(f"[{label}] thomas pivoting branch {ln.split(':')[0]}: "
+              f"{m.group(1) if m else '?'} registers, {spill_store_bytes(ln)} "
+              f"bytes spill stores, {stack_frame_bytes(ln)} bytes stack frame",
+              flush=True)
+    f32_pivot = [ln for ln in pivot_branch if "<float" in ln]
+    check(len(pivot_branch) == 2 and len(f32_pivot) == 1
+          and spill_store_bytes(f32_pivot[0]) == 0,
+          "the thomas kernel's f32 pivoting branch spills registers")
     print(f"[{label}] jacobi shared-memory branch (8 < n <= 32), stack frame "
           f"bytes per instantiation: {shared_branch} (all must be 0)",
           flush=True)

@@ -55,45 +55,63 @@
 // 24 < K <= 48 (thomas_pivot_kernel; the polarized 16-stream solver's
 // K = 48): Gauss-Jordan with partial (row) pivoting, as the reference's
 // pivoted solve. What bounds it: per lane and layer a 48 x 48 x 48
-// product lo c[p-1] and the elimination of a 48 x 97 system, 68.9 GFLOP
-// for [100, 48, 48, 1024] (1.03 ms at the FP32 rate; its 2.87 GB of
-// operands 0.86 ms), but 1024 systems each serial over P layers and 48
-// pivot steps a layer, each step a column arg-max and a pivot row that
-// every thread of the lane must see. Tensor cores are no route: the
-// products stay in full FP32 (no TF32). v3's warp per lane does not fit
-// 48 x 97 systems, so the design is:
-// - A lane's system is held in registers by TPL = RG x CG threads, thread
-//   (g, h) owning rows g + RG m (m < 48 / RG) and, in each half of
-//   [denom | up] and c[p-1], columns h + CG n (n < 48 / CG); h = 0 also
-//   owns the rhs column. f32: RG = 16, CG = 4 (a 3 x 24 tile, 64 threads
-//   a lane); f64: RG = 16, CG = 8 (3 x 12, 128 threads a lane). At
-//   [100, 48, 48, 1024] f32 on the H100 (tools/probe_thomas_pivot.py):
-//   8 x 8 (6 x 12 tiles, longer select chains to pick the pivot row out
-//   of registers) 10.5 ms, 4 x 16 (12 x 6, spilling) 13.8 ms, this 8.95
-//   ms. The elimination is about 80% of that, and its arg-max a quarter:
-//   per step the arg-max, the pivot row's selection and the publishing
-//   stores come to several instructions per FMA.
-// - A block holds LW lanes (8 in f32, 4 in f64: 32 bytes, one sector, of
-//   each W-minor operand row), 512 threads, lane the fastest thread
-//   index: every global load or store of a warp covers whole sectors, so
-//   the W-minor operands are read as they lie, with no transposing pass.
-//   All lanes of a block take the same steps, so they share its barriers.
-//   About 158 KB of shared memory: one block, 8 lanes, per SM, so the
-//   1024 lanes of the slice run in a single wave.
-// - A step: every warp finds the pivot of each of its lanes from the
-//   published column (a shuffle arg-max over the unpivoted rows, the
-//   lowest row on ties, so all warps agree); the pivot row's owners
-//   publish it scaled by 1 / pivot; a barrier; every thread subtracts it
-//   from its rows and the owners of the next column publish that. Rows
-//   are never swapped or rescaled once pivoted: a pivoted row keeps its
-//   scale in a register and is scaled once, when c[p] | y[p] is written
-//   to shared memory for the next layer's product; from there it goes to
-//   the scratch for the back substitution in 16-byte vectors (its rows
-//   are in each lane's pivot order, so stores from registers would
-//   scatter). Two barriers a step.
-// - lo[p + 1] is copied into shared memory with cp.async while layer p
-//   eliminates, and di, up and r of layer p + 1 are prefetched into L2;
-//   the back substitution prefetches the next layer's c | y.
+// product lo c[p-1] and the solve of a 48 x 48 block for 49 right-hand
+// sides; counted as LU with partial pivoting, 53.9 GFLOP for
+// [100, 48, 48, 1024] (0.80 ms at the FP32 rate; Gauss-Jordan, as here,
+// does 68.9), under the 0.86 ms that its 2.87 GB of operands take at the
+// memory rate; but each of the 1024 systems is serial over P
+// layers and 48 pivot steps a layer, and each step is a column arg-max
+// whose pivot row every thread of the lane must see. Tensor cores are no
+// route: the products stay in full FP32 (no TF32). So the time is the
+// chain of a step (the factors and the pivot row arrive, update, search,
+// publish) times 4,800 steps, and the design shortens that chain and
+// lets the SM's lanes run theirs apart:
+// - A synchronisation domain per lane. f32: one warp holds a lane's
+//   system in registers, thread tl owning rows g + 16 m (g = tl / 2,
+//   m < 3) and columns h + 2 n (h = tl % 2) of denom (n < 24) and of
+//   [up | rhs] (n < 25; column 48 the rhs): 147 registers of system,
+//   229 a thread, no spill; 8 lanes, 256 threads, a block and an SM. A
+//   step synchronises the warp alone, so the 8 lanes of an SM run their
+//   chains independently. f64: two warps a lane, the column groups split
+//   between them, a named barrier (bar.sync 1 + lane, 64) a step.
+// - The pivot searched a step ahead. Step s ends with the warp owning
+//   column s + 1 finding that column's pivot by two redux.sync (the max
+//   of a key that orders |a| and puts NaN below every number, then the
+//   min row among the keys equal to it: the lowest row on ties, NaN never
+//   chosen), publishing the pivot row and writing the factors (column
+//   over pivot) of step s + 1, so a step is one warp sync, not the two
+//   block-wide barriers with a serial arg-max between them of the
+//   branch's first, block-synchronous design. The search runs after the
+//   step's update, not beside it: beside, ptxas issues its dependent
+//   reductions amid the FMAs and the step took longer. Rows are never
+//   swapped or rescaled once pivoted; a pivoted row is scaled once,
+//   when c[p] | y[p] is written.
+// - The steps run in chunks of 8, each unrolled, so that every register
+//   index is a constant; between chunks the denom registers move down by
+//   a chunk's slots (9 moves a step), and from step 24 on the upper half,
+//   zeros moved in, is left out. All 48 steps unrolled were 240 KB of
+//   code and ran slower than the first design (instruction fetch); a
+//   rolled loop takes column s + 1 out of the registers through a branch
+//   tree. Every denom column is updated in every step, those at or before
+//   s too (not read again): cheaper than branching past them.
+// - Lane-major warps would read the W-minor operands 4 bytes a sector, so
+//   lo, di and up of the next layer are copied into each lane's layout in
+//   shared memory by one-element cp.async (4 bytes in f32, 8 in f64),
+//   LW threads on the LW lanes of one element (whole sectors a warp),
+//   32 / LW elements of a lane a warp
+//   (distinct banks), one part a step in the first steps of the chunks
+//   (in one burst the copies stall the step chains); two block barriers
+//   a layer (copies landed; every lane done with the buffers). 231,552
+//   bytes of shared memory a block in f32 (231,168 in f64; a block may
+//   have 232,448): lo^T, up, c[p-1] (di[p] before it), two factor
+//   records and two pivot-row buffers a lane. c[p] | y[p] go to the
+//   scratch in 16-byte vectors; warp 0 of each lane does the back
+//   substitution, each layer's record brought into shared memory by
+//   cp.async a layer ahead.
+// Variants and the cost of each part: tools/probe_thomas_pivot.py, with
+// its times in PERF.md. The first design's tilings (RG x CG threads a
+// lane, 8 lanes a block, two block barriers a step) ran 16 x 4 at
+// 8.95 ms, 8 x 8 at 10.5 ms and 4 x 16, spilling, at 13.8 ms.
 
 #include <cuda_runtime.h>
 
@@ -474,328 +492,527 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-// Shared-memory layout in elements of T, every region [..][lane]: lo of
-// the layer [PK][PK][LW]; c | y of the previous layer [PK][PK + 1][LW];
-// the published pivot column, double-buffered [2][PK][LW]; the published
-// pivot row [2 PK + 1][LW] (denom part, up part, rhs); x[p+1] of the back
-// substitution [2][PK][LW]. LW elements are 32 bytes, so every region is
-// 32-byte aligned.
-template <typename T, int LW, int RG, int CG>
-struct Pivot {
-  static constexpr int LANES = LW;
-  static constexpr int ROWG = RG;
-  static constexpr int COLG = CG;
-  static constexpr int TPL = RG * CG;  // threads per lane
-  static constexpr int NT = LW * TPL;  // threads per block
-  static constexpr int MR = PK / RG;   // rows per thread
-  static constexpr int MC = PK / CG;   // columns per thread in each half
-  static constexpr int CS = PK + 1;    // row of c | y
-  static constexpr int LO = 0;
-  static constexpr int CB = LO + PK * PK * LW;
-  static constexpr int COL = CB + PK * CS * LW;
-  static constexpr int ROW = COL + 2 * PK * LW;
-  static constexpr int XS = ROW + (2 * PK + 1) * LW;
-  static constexpr int TOTAL = XS + 2 * PK * LW;
-  static constexpr int SCRATCH = PK * CS * LW;  // c | y of one layer and block
-  static_assert(LW * sizeof(T) == 32, "a lane group is one 32-byte sector");
-  static_assert(PK % RG == 0 && PK % CG == 0 && NT % 32 == 0, "tiling");
-  static_assert((32 / LW) <= CG && CG % (32 / LW) == 0,
-                "a warp holds one row group");
-};
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-// Copy lo[p] (rows and columns < K) for lanes w0 .. w0 + LW into `los`,
-// V lanes a copy; lanes past W are zero-filled.
-template <typename T, int LW, int NT, bool VEC>
-__device__ __forceinline__ void pivot_load_lo(const T* lo, T* los, int p, int K, int W,
-                                              int w0) {
-  constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
-  constexpr int PER = LW / V;
-  const int items = K * K * PER;
-  const T* base = lo + static_cast<long long>(p) * K * K * W;
-  for (int it = threadIdx.x; it < items; it += NT) {
-    const int ik = it / PER;
-    const int part = it - ik * PER;
-    const int i = ik / K;
-    const int k = ik - i * K;
-    const int wl = w0 + part * V;
-    const bool valid = wl < W;
-    const T* src = base + static_cast<long long>(ik) * W + wl;
-    cp_async<T, V>(los + (i * PK + k) * LW + part * V, valid ? src : base, valid);
+// The WPL warps of one lane meet: the warp alone, or named barrier
+// 1 + lane over the lane's 32 WPL threads (barrier 0 is __syncthreads).
+template <int WPL>
+__device__ __forceinline__ void lane_sync(int lane) {
+  if constexpr (WPL == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + lane), "n"(32 * WPL) : "memory");
   }
 }
 
-template <typename T, int LW, int RG, int CG, bool VEC>
-__global__ void __launch_bounds__(LW * RG * CG, 1)
+// The pivot search's key of v: a larger |v| has a larger key; NaN has 0,
+// below every number (0 has 1).
+__device__ __forceinline__ unsigned pivot_key(float v) {
+  const unsigned b = __float_as_uint(fabsf(v));
+  return b <= 0x7f800000u ? b + 1u : 0u;
+}
+
+__device__ __forceinline__ unsigned long long pivot_key(double v) {
+  const auto b = static_cast<unsigned long long>(__double_as_longlong(fabs(v)));
+  return b <= 0x7ff0000000000000ull ? b + 1ull : 0ull;
+}
+
+// The largest key of the warp, in every thread: one redux.sync, or two
+// for a 64-bit key (its high word, then the low word where the high one
+// is the largest).
+__device__ __forceinline__ unsigned warp_max(unsigned k) {
+  return __reduce_max_sync(FULL, k);
+}
+
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long k) {
+  const unsigned hi = __reduce_max_sync(FULL, static_cast<unsigned>(k >> 32));
+  const unsigned lo = __reduce_max_sync(
+      FULL, static_cast<unsigned>(k >> 32) == hi ? static_cast<unsigned>(k) : 0u);
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// A block holds LW lanes (wavelengths), WPL warps each, a lane's threads
+// consecutive. Thread tl of the lane's warp wq owns rows g + RG m
+// (g = tl / 2, m < MR) and columns hh + CG n of denom (n < MCL) and of
+// [up | rhs] (n < MCR; column 48 is the rhs, in group 0, and the others
+// past 47 stay 0), hh = 2 wq + tl % 2.
+// Shared memory per lane, in elements of T, every region 16-byte
+// aligned: lo[p] transposed, [k][i] (LO); up[p], [i][j'] (ST); c[p-1],
+// [k][j'], and before it di[p], [i][j'] (CY); two factor records
+// [2][FW] (FR: f[48], the pivot row, 1 / pivot), the first of which holds
+// y[p-1] between layers; two pivot rows [2][CG][PW] (PR: each column
+// group's part, its denom columns then its [up | rhs] columns). j' =
+// (j % CG) MCL + j / CG puts a thread's columns side by side, so that it
+// reads its part of a row as 16-byte vectors.
+template <typename T, int LW, int WPL>
+struct Pivot {
+  static constexpr int LANES = LW;
+  static constexpr int WARPS = WPL;
+  static constexpr int NT = 32 * WPL * LW;  // threads a block
+  static constexpr int RG = 16;             // row groups
+  static constexpr int MR = PK / RG;        // rows a thread
+  static constexpr int CG = 2 * WPL;        // column groups, two a warp
+  static constexpr int MCL = PK / CG;       // denom columns a thread
+  static constexpr int MCR = MCL + 1;       // [up | rhs] columns a thread
+  static constexpr int V = 16 / static_cast<int>(sizeof(T));  // a 16-byte vector
+  static constexpr int RL = round_up(MCL, V);  // the [up | rhs] part of a group
+  static constexpr int PW = RL + round_up(MCR, V);
+  static constexpr int FW = PK + 4;
+  static constexpr int LO = 0;
+  static constexpr int ST = LO + PK * PK;
+  static constexpr int CY = ST + PK * PK;
+  static constexpr int FR = CY + PK * PK;
+  static constexpr int PR = FR + 2 * FW;
+  // a lane's region, padded so that a warp's copies (32 / LW consecutive
+  // elements of each of the LW lanes) fall in distinct banks
+  static constexpr int BANKS = 128 / static_cast<int>(sizeof(T));
+  static constexpr int LANE =
+      PR + 2 * CG * PW + ((32 / LW - (PR + 2 * CG * PW)) % BANKS + BANKS) % BANKS;
+  static constexpr int TOTAL = LW * LANE;
+  static constexpr int REC = PK * PK + PK;  // c | y of a lane and layer, scratch
+  static constexpr int SCRATCH = LW * REC;  // the scratch of a block and layer
+  static_assert(LW * sizeof(T) == 32, "a block's lanes are one 32-byte sector");
+  static_assert(MCL % V == 0 && FW % V == 0 && PW % V == 0 && LANE % V == 0,
+                "16-byte alignment");
+  static_assert(TOTAL * sizeof(T) <= 232448, "shared memory of a block");
+};
+
+template <typename T, int LW, int WPL>
+__global__ void __launch_bounds__(32 * WPL * LW, 1)
 thomas_pivot_kernel(const T* __restrict__ lo, const T* __restrict__ di,
                     const T* __restrict__ up, const T* __restrict__ r,
-                    T* cy, T* __restrict__ x, int P, int K, int W) {
-  using S = Pivot<T, LW, RG, CG>;
+                    T* __restrict__ cy, T* __restrict__ x, int P, int K, int W) {
+  using S = Pivot<T, LW, WPL>;
+  constexpr int RG = S::RG;
   constexpr int MR = S::MR;
-  constexpr int MC = S::MC;
-  constexpr int CS = S::CS;
+  constexpr int CG = S::CG;
+  constexpr int MCL = S::MCL;
+  constexpr int MCR = S::MCR;
+  constexpr int V = S::V;
+  constexpr int RL = S::RL;
+  constexpr int PW = S::PW;
+  constexpr int FW = S::FW;
   constexpr int NT = S::NT;
-  constexpr int TW = 32 / LW;  // threads of one lane in a warp
+  constexpr int LT = 32 * WPL;  // threads a lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  T* los = sm + S::LO;
-  T* cb = sm + S::CB;
-  T* colb = sm + S::COL;
-  T* rowb = sm + S::ROW;
-  T* xs = sm + S::XS;
+  T* const sm = reinterpret_cast<T*>(smem_raw);
 
   const int t = threadIdx.x;
-  const int l = t % LW;        // lane of the block
-  const int q = t / LW;        // tile of the lane
-  const int g = q / CG;        // row group
-  const int h = q % CG;        // column group
-  const int qq = (t % 32) / LW;  // this thread's share of the arg-max scan
+  const int lane = t / LT;
+  const int tq = t % LT;  // thread of the lane
+  const int wq = WPL == 1 ? 0 : tq / 32;  // warp of the lane
+  const int tl = t % 32;
+  const int g = tl / 2;
+  const int hh = 2 * wq + tl % 2;
   const int w0 = blockIdx.x * LW;
-  const int w = w0 + l;
+  const int w = w0 + lane;
   const bool live = w < W;
-  const int wl = live ? w : W - 1;  // a dead lane reads a live lane's di, up, r
+  const int wr = live ? w : W - 1;  // a dead lane reads a live lane's r
+  T* const ls = sm + lane * S::LANE;
+  T* const fr = ls + S::FR;
+  T* const pr = ls + S::PR;
   const long long KW = static_cast<long long>(K) * W;
-  const long long KKW = KW * K;
-  const long long cy_layer = static_cast<long long>(gridDim.x) * S::SCRATCH;
-  T* cy_blk = cy + static_cast<long long>(blockIdx.x) * S::SCRATCH;
+  const long long rec_layer = static_cast<long long>(gridDim.x) * S::SCRATCH;
+  T* const rec0 = cy + (static_cast<long long>(blockIdx.x) * LW + lane) * S::REC;
 
-  for (int e = t; e < S::COL; e += NT) sm[e] = T(0);  // lo and c | y padding
-  __syncthreads();
-  pivot_load_lo<T, LW, NT, VEC>(lo, los, 0, K, W, w0);
-  cp_async_commit();
-
-  T a[MR][MC];  // denom, columns h + CG n
-  T u[MR][MC];  // up, then c[p], columns h + CG n
-  T bb[MR];     // the rhs, then y[p] (column group 0)
-  T rinv[MR];   // 1 / pivot of the step at which the row was pivoted
+  T a[MR][MCL];  // denom
+  T u[MR][MCR];  // [up | rhs], then c[p] | y[p] (rows unscaled, in pivot order)
+  T rn[MR];      // r of the next layer (column group 0)
+  T rinv[MR];    // 1 / pivot of the step that pivoted the row
   int rstep[MR];
+  unsigned free_rows = 0;  // bit m: row g + RG m is below K and not pivoted yet
+  int ps = 0;              // the step's pivot row and 1 / pivot
+  T inv = T(0);
 
-  // c[p] | y[p] from shared memory to the scratch, in 16-byte vectors: the
-  // rows are in pivot order per lane, so a store from registers would
-  // scatter over sectors
-  auto store_cy = [&](int p) {
-    constexpr int V = 16 / static_cast<int>(sizeof(T));
-    using Vec = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
-    const Vec* src = reinterpret_cast<const Vec*>(cb);
-    Vec* dst = reinterpret_cast<Vec*>(cy_blk + p * cy_layer);
-    for (int e = t; e < K * CS * LW / V; e += NT) dst[e] = src[e];
+  // Layer p's lo, di and up of the block's lanes into LO, CY and ST, RPS
+  // rows of each a call (`part` of the PARTS of a layer, PPC a chunk of
+  // the elimination): LW consecutive threads copy one element of the LW
+  // lanes, so that every warp reads whole 32-byte sectors, and 32 / LW
+  // consecutive elements of each lane's layout, so that its shared stores
+  // fall in distinct banks. Elements past K are 0.
+  constexpr int STEP = NT / LW;             // elements of a lane a pass of the block
+  constexpr int CPS = 3;                    // passes a call
+  constexpr int RPS = CPS * STEP / PK;      // rows a call
+  constexpr int PARTS = PK / RPS;           // calls a layer
+  constexpr int SC = 8;                     // steps a chunk of the elimination
+  constexpr int SH = SC / CG;               // denom slots a chunk
+  constexpr int MIN_CHUNKS = (PK / 2 + SC) / SC;  // chunks at the least K, 25
+  constexpr int PPC = (PARTS + MIN_CHUNKS - 1) / MIN_CHUNKS;  // copy calls a chunk
+  static_assert(CPS * STEP % PK == 0 && PK % RPS == 0, "copy passes");
+  static_assert(SC % CG == 0 && MCL % SH == 0 && PPC <= SC && MCL / V % 2 == 0, "chunks");
+  const int cl = t % LW;
+  T* const cdst = sm + cl * S::LANE + t / LW;
+  const int cw = min(w0 + cl, W - 1);  // a dead lane copies a live one
+  int ca[CPS], cb[CPS], cj[CPS];  // per pass: row offset, column in LO, in CY / ST
+#pragma unroll
+  for (int c = 0; c < CPS; ++c) {
+    const int e = c * STEP + t / LW;
+    ca[c] = e / PK;
+    cb[c] = e % PK;
+    cj[c] = cb[c] / MCL + CG * (cb[c] % MCL);
+  }
+  auto copy_part = [&](int p, int part) {
+    const long long layer = static_cast<long long>(p) * K * KW + cw;
+#pragma unroll
+    for (int c = 0; c < CPS; ++c) {
+      const int row = RPS * part + ca[c];
+      T* const d = cdst + RPS * part * PK + c * STEP;
+      // lo[p][cb][row] -> LO[row][cb]; di, up [row][cj] -> CY, ST [row][cb];
+      // zeros past K
+      const bool in_lo = row < K && cb[c] < K;
+      const bool in_d = row < K && cj[c] < K;
+      const long long ol = layer + static_cast<long long>(in_lo ? cb[c] * K + row : 0) * W;
+      const long long od = layer + static_cast<long long>(in_d ? row * K + cj[c] : 0) * W;
+      cp_async<T, 1>(d + S::LO, lo + ol, in_lo);
+      cp_async<T, 1>(d + S::CY, di + od, in_d);
+      cp_async<T, 1>(d + S::ST, up + od, in_d);
+    }
+    cp_async_commit();
   };
 
-  for (int p = 0; p < P; ++p) {
-    // --- this thread's elements of di[p], up[p] and r[p] ----------------------
-    const T* di_p = di + p * KKW;
-    const T* up_p = up + p * KKW;
+  auto load_r = [&](int p) {
 #pragma unroll
     for (int m = 0; m < MR; ++m) {
       const int i = g + RG * m;
-#pragma unroll
-      for (int n = 0; n < MC; ++n) {
-        const int j = h + CG * n;
-        const bool in = i < K && j < K;
-        const long long o = static_cast<long long>(i * K + j) * W + wl;
-        a[m][n] = in ? di_p[o] : T(0);
-        u[m][n] = in ? up_p[o] : T(0);
-      }
-      bb[m] = (h == 0 && i < K) ? r[p * KW + static_cast<long long>(i) * W + wl] : T(0);
-      rinv[m] = T(0);
-      rstep[m] = 0;
+      rn[m] = (hh == 0 && i < K) ? r[p * KW + static_cast<long long>(i) * W + wr] : T(0);
     }
-    cp_async_wait_all();
-    __syncthreads();  // lo[p] and c[p-1] | y[p-1] are in shared memory
-    if (p > 0) store_cy(p - 1);
+  };
 
-    // --- denom = di - lo c[p-1], rhs = r - lo y[p-1] ----------------------------
+  // c[p] | y[p] into CY and the first factor record: the row pivoted at
+  // step k is row k of the solution, scaled once; rows past K are 0
+  auto write_cy = [&]() {
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      const int i = g + RG * m;
+      const bool real = i < K;
+      const int row = real ? rstep[m] : i;
+      T v[MCL];
+#pragma unroll
+      for (int n = 0; n < MCL; ++n) v[n] = real ? u[m][n] * rinv[m] : T(0);
+      sts_vec<T, MCL>(ls + S::CY + row * PK + hh * MCL, v);
+      if (hh == 0) fr[row] = real ? u[m][MCL] * rinv[m] : T(0);
+    }
+  };
+
+  // c[p] | y[p] of the lane from CY and FR to its scratch record, in
+  // 16-byte vectors, for the back substitution
+  auto store_rec = [&](int p) {
+    using Vec = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
+    const Vec* src = reinterpret_cast<const Vec*>(ls + S::CY);
+    Vec* dst = reinterpret_cast<Vec*>(rec0 + p * rec_layer);
+    for (int e = tq; e < PK * PK / V; e += LT) dst[e] = src[e];
+    if (tq < PK / V) dst[PK * PK / V + tq] = reinterpret_cast<const Vec*>(fr)[tq];
+  };
+
+  // The pivot of a column among the rows not yet pivoted: the largest |v|,
+  // the lowest row on ties, NaN never chosen. v[m] is row g + RG m of the
+  // column in the threads with tl % 2 == hc. The column's warp calls it
+  // and every thread of it gets the row, and its value in vp.
+  auto find_pivot = [&](const T (&v)[MR], int hc, T& vp) -> int {
+    using Key = decltype(pivot_key(T(0)));
+    const bool own = tl % 2 == hc;
+    Key key[MR];
+    Key best = 0;
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      key[m] = (own && ((free_rows >> m) & 1u)) ? pivot_key(v[m]) : Key(0);
+      best = key[m] > best ? key[m] : best;
+    }
+    const Key top = warp_max(best);
+    unsigned cand = PK;
+#pragma unroll
+    for (int m = MR - 1; m >= 0; --m) {
+      if (own && ((free_rows >> m) & 1u) && key[m] == top) cand = g + RG * m;
+    }
+    const int piv = static_cast<int>(__reduce_min_sync(FULL, cand));
+    const int mp = piv / RG;
+    T vs = v[0];
+#pragma unroll
+    for (int m = 1; m < MR; ++m) vs = mp == m ? v[m] : vs;
+    vp = __shfl_sync(FULL, vs, 2 * (piv - RG * mp) + hc);
+    return piv;
+  };
+
+  // This thread's part of row R, as it stands, into pivot-row buffer b;
+  // its denom slots moved down by sh (a constant: 0, or SH when the row
+  // is read in the next chunk)
+  auto publish = [&](int R, int b, int sh) {
+    if (g != R % RG) return;
+    T* const dst = pr + (b * CG + hh) * PW;
+    const int mr = R / RG;
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      if (m == mr) {
+#pragma unroll
+        for (int q = 0; q < MCL / V; ++q) {
+          T v[V];
+#pragma unroll
+          for (int d = 0; d < V; ++d) {
+            const int n = q * V + d + sh;
+            v[d] = n < MCL ? a[m][n] : T(0);
+          }
+          sts_vec<T, V>(dst + q * V, v);
+        }
+#pragma unroll
+        for (int q = 0; q < round_up(MCR, V) / V; ++q) {
+          T v[V];
+#pragma unroll
+          for (int d = 0; d < V; ++d) v[d] = q * V + d < MCR ? u[m][q * V + d] : T(0);
+          sts_vec<T, V>(dst + RL + q * V, v);
+        }
+      }
+    }
+  };
+
+  for (int e = t; e < S::TOTAL; e += NT) sm[e] = T(0);  // the padding past K
+  __syncthreads();
+  for (int part = 0; part < PARTS; ++part) copy_part(0, part);
+  load_r(0);
+
+  for (int p = 0; p < P; ++p) {
+    cp_async_wait_all();
+    __syncthreads();  // layer p's lo, di and up are in shared memory
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      lds_vec<T, MCL>(a[m], ls + S::CY + (g + RG * m) * PK + hh * MCL);
+    }
+    lane_sync<WPL>(lane);  // di[p] is read before c[p-1] takes its place
+    if (p > 0) write_cy();
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      lds_vec<T, MCL>(u[m], ls + S::ST + (g + RG * m) * PK + hh * MCL);
+      u[m][MCL] = rn[m];
+    }
+    lane_sync<WPL>(lane);  // c[p-1] | y[p-1] are in CY and FR
+
+    // --- denom = di - lo c[p-1], rhs = r - lo y[p-1] --------------------------
     if (p > 0) {
-#pragma unroll 4
+      store_rec(p - 1);
+      const T* lt = ls + S::LO + g;
+      const T* ct = ls + S::CY + hh * MCL;
+#pragma unroll 2
       for (int k = 0; k < K; ++k) {
-        T lv[MR], cv[MC];
+        T lv[MR], cv[MCL];
 #pragma unroll
-        for (int m = 0; m < MR; ++m) lv[m] = los[((g + RG * m) * PK + k) * LW + l];
-#pragma unroll
-        for (int n = 0; n < MC; ++n) cv[n] = cb[(k * CS + h + CG * n) * LW + l];
+        for (int m = 0; m < MR; ++m) lv[m] = lt[k * PK + RG * m];
+        lds_vec<T, MCL>(cv, ct + k * PK);
+        const T yk = hh == 0 ? fr[k] : T(0);
 #pragma unroll
         for (int m = 0; m < MR; ++m) {
 #pragma unroll
-          for (int n = 0; n < MC; ++n) a[m][n] -= lv[m] * cv[n];
-        }
-        if (h == 0) {
-          const T yk = cb[(k * CS + PK) * LW + l];
-#pragma unroll
-          for (int m = 0; m < MR; ++m) bb[m] -= lv[m] * yk;
+          for (int n = 0; n < MCL; ++n) a[m][n] -= lv[m] * cv[n];
+          u[m][MCL] -= lv[m] * yk;
         }
       }
     }
-    if (h == 0) {  // publish column 0
-#pragma unroll
-      for (int m = 0; m < MR; ++m) colb[(g + RG * m) * LW + l] = a[m][0];
-    }
+    __syncthreads();  // every lane is done with LO, ST and CY
+    if (p + 1 < P) load_r(p + 1);
 
-    // --- Gauss-Jordan with partial pivoting ------------------------------------
-    // rows past K count as pivoted from the start, so never chosen
-    unsigned long long pivoted = ~((1ull << K) - 1ull);
-    for (int s = 0; s < K; ++s) {
-      const T* col = colb + (s & 1) * PK * LW;
-      __syncthreads();  // column s published; the row buffer is free
-      if (s == 0 && p + 1 < P) {
-        // lo is free (the product is done): copy the next layer's, and
-        // bring its di, up and r into L2
-        pivot_load_lo<T, LW, NT, VEC>(lo, los, p + 1, K, W, w0);
-        cp_async_commit();
-        const int kk = K * K;
-        const T* dn = di + (p + 1) * KKW + w0;
-        const T* un = up + (p + 1) * KKW + w0;
-        const T* rn = r + (p + 1) * KW + w0;
-        for (int it = t; it < 2 * kk + K; it += NT) {
-          const T* src = it < kk ? dn + static_cast<long long>(it) * W
-                                 : (it < 2 * kk ? un + static_cast<long long>(it - kk) * W
-                                                : rn + static_cast<long long>(it - 2 * kk) * W);
-          prefetch_l2(src);
-        }
+    // --- Gauss-Jordan with partial pivoting, the pivot searched ahead ---------
+    free_rows = 0;
+#pragma unroll
+    for (int m = 0; m < MR; ++m) free_rows |= (g + RG * m < K ? 1u : 0u) << m;
+    if (wq == 0) {  // column 0: warp 0, group 0
+      T v[MR];
+#pragma unroll
+      for (int m = 0; m < MR; ++m) v[m] = a[m][0];
+      T vp;
+      const int p0 = find_pivot(v, 0, vp);
+      const T i0 = T(1) / vp;
+      if (tl % 2 == 0) {
+#pragma unroll
+        for (int m = 0; m < MR; ++m) fr[g + RG * m] = g + RG * m == p0 ? T(0) : v[m] * i0;
       }
-      // the pivot: the largest |column s| over the unpivoted rows, the
-      // lowest row on ties; NaN is never chosen
-      T best = T(-1);
-      int bi = PK;
-#pragma unroll
-      for (int rr = 0; rr < PK / TW; ++rr) {
-        const int i = qq + TW * rr;
-        const T v = ((pivoted >> i) & 1ull) ? T(-1) : fabs(col[i * LW + l]);
-        if (v > best) {
-          best = v;
-          bi = i;
-        }
+      if (WPL > 1 && tl == 0) {
+        fr[PK] = T(p0);
+        fr[PK + 1] = i0;
       }
+      ps = p0;
+      inv = i0;
+      publish(p0, 0, 0);
+    }
+    lane_sync<WPL>(lane);
+
+    // The steps in chunks of SC, each unrolled, so that every register
+    // index is a constant: in a chunk from step c0, denom slot n holds
+    // columns hh + CG n + c0 (the slots move down by SH after each chunk).
+    for (int c0 = 0; c0 < K; c0 += SC) {
 #pragma unroll
-      for (int o = LW; o < 32; o <<= 1) {
-        const T ob = __shfl_xor_sync(FULL, best, o);
-        const int oi = __shfl_xor_sync(FULL, bi, o);
-        if (ob > best || (ob == best && oi < bi)) {
-          best = ob;
-          bi = oi;
-        }
-      }
-      const int piv = bi < PK ? bi : __ffsll(static_cast<long long>(~pivoted)) - 1;
-      pivoted |= 1ull << piv;
-      const T inv = T(1) / col[piv * LW + l];
-      const int mp = piv / RG;
-      // the pivot row's owners publish it scaled by 1 / pivot
-      if (g == piv - RG * mp) {
-#pragma unroll
-        for (int n = 0; n < MC; ++n) {
-          T va = a[0][n], vu = u[0][n];
-#pragma unroll
-          for (int m = 1; m < MR; ++m) {
-            va = mp == m ? a[m][n] : va;
-            vu = mp == m ? u[m][n] : vu;
+      for (int k = 0; k < SC; ++k) {
+        // the next layer's copies, PPC parts a chunk from its first steps
+        if (k < PPC && c0 / SC * PPC + k < PARTS && p + 1 < P) copy_part(p + 1, c0 / SC * PPC + k);
+        const int s = c0 + k;
+        if (s < K) {
+          const int b = s & 1;
+          const T* const frs = fr + b * FW;
+          if constexpr (WPL > 1) {
+            ps = static_cast<int>(frs[PK]);
+            inv = frs[PK + 1];
           }
-          rowb[(h + CG * n) * LW + l] = va * inv;
-          rowb[(PK + h + CG * n) * LW + l] = vu * inv;
-        }
-        if (h == 0) {
-          T vb = bb[0];
+          T f[MR];  // row -= f x (the pivot row): its column s over the pivot
 #pragma unroll
-          for (int m = 1; m < MR; ++m) vb = mp == m ? bb[m] : vb;
-          rowb[2 * PK * LW + l] = vb * inv;
+          for (int m = 0; m < MR; ++m) {
+            f[m] = frs[g + RG * m];
+            if (g + RG * m == ps) {
+              free_rows &= ~(1u << m);
+              rstep[m] = s;
+              rinv[m] = inv;
+            }
+          }
+          if (WPL > 1 && wq != (k % CG) / 2) {  // not column s's warp: publish now
+            publish(ps, b, 0);
+            __syncwarp();
+          }
+          const T* const prow = pr + (b * CG + hh) * PW;
+#pragma unroll
+          for (int q = 0; q < round_up(MCR, V) / V; ++q) {
+            T pv[V];
+            lds_vec<T, V>(pv, prow + RL + q * V);
+#pragma unroll
+            for (int d = 0; d < V; ++d) {
+              const int n = q * V + d;
+              if (n < MCR) {
+#pragma unroll
+                for (int m = 0; m < MR; ++m) u[m][n] -= f[m] * pv[d];
+              }
+            }
+          }
+          // denom (none after the last step): every slot, those of columns
+          // at or before s too (they are not read again), which costs less
+          // than the branches that would skip them; from step 24 on the
+          // upper half of the slots holds zeros moved in and is left out
+          const bool ahead = s + 1 < K;
+          auto denom = [&](int q) {
+            T pv[V];
+            lds_vec<T, V>(pv, prow + q * V);
+#pragma unroll
+            for (int d = 0; d < V; ++d) {
+#pragma unroll
+              for (int m = 0; m < MR; ++m) a[m][q * V + d] -= f[m] * pv[d];
+            }
+          };
+          if (ahead) {
+#pragma unroll
+            for (int q = 0; q < MCL / V / 2; ++q) denom(q);
+            if (c0 < PK / 2) {
+#pragma unroll
+              for (int q = MCL / V / 2; q < MCL / V; ++q) denom(q);
+            }
+          }
+          // the next column: its warp, group and slot are constants
+          const int c1 = k + 1;
+          if (ahead && wq == (c1 % CG) / 2) {
+            T v[MR];
+#pragma unroll
+            for (int m = 0; m < MR; ++m) v[m] = a[m][c1 / CG];
+            T vp;
+            const int ps1 = find_pivot(v, c1 % 2, vp);
+            // step s + 1 reads its pivot row in its chunk's slots
+            publish(ps1, b ^ 1, k == SC - 1 ? SH : 0);
+            const T inv1 = T(1) / vp;
+            T* const fn = fr + (b ^ 1) * FW;
+            if (tl % 2 == c1 % 2) {
+#pragma unroll
+              for (int m = 0; m < MR; ++m) fn[g + RG * m] = g + RG * m == ps1 ? T(0) : v[m] * inv1;
+            }
+            if (WPL > 1 && tl == 0) {
+              fn[PK] = T(ps1);
+              fn[PK + 1] = inv1;
+            }
+            ps = ps1;
+            inv = inv1;
+          }
+          lane_sync<WPL>(lane);
         }
       }
 #pragma unroll
       for (int m = 0; m < MR; ++m) {
-        const bool is = g + RG * m == piv;
-        rinv[m] = is ? inv : rinv[m];
-        rstep[m] = is ? s : rstep[m];
-      }
-      __syncthreads();  // the pivot row is published
-
-      // every other row: row -= (its column s) x the scaled pivot row
-      T f[MR];
 #pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const int i = g + RG * m;
-        f[m] = i == piv ? T(0) : col[i * LW + l];
-      }
-#pragma unroll
-      for (int n = 0; n < MC; ++n) {
-        if (CG * n + CG - 1 > s) {  // columns <= s are done
-          const T rv = rowb[(h + CG * n) * LW + l];
-#pragma unroll
-          for (int m = 0; m < MR; ++m) a[m][n] -= f[m] * rv;
-        }
-        const T rv = rowb[(PK + h + CG * n) * LW + l];
-#pragma unroll
-        for (int m = 0; m < MR; ++m) u[m][n] -= f[m] * rv;
-      }
-      if (h == 0) {
-        const T rv = rowb[2 * PK * LW + l];
-#pragma unroll
-        for (int m = 0; m < MR; ++m) bb[m] -= f[m] * rv;
-      }
-      // the owners of column s + 1 publish it
-      T* cn = colb + ((s + 1) & 1) * PK * LW;
-#pragma unroll
-      for (int n = 0; n < MC; ++n) {
-        if (h + CG * n == s + 1) {
-#pragma unroll
-          for (int m = 0; m < MR; ++m) cn[(g + RG * m) * LW + l] = a[m][n];
-        }
-      }
-    }
-
-    // --- c[p] | y[p]: row rstep of the solution, scaled once, into shared
-    // memory for the next layer's product; the next barrier hands it to
-    // store_cy
-#pragma unroll
-    for (int m = 0; m < MR; ++m) {
-      if (g + RG * m < K) {
-        T* dst = cb + rstep[m] * CS * LW + l;
-#pragma unroll
-        for (int n = 0; n < MC; ++n) dst[(h + CG * n) * LW] = u[m][n] * rinv[m];
-        if (h == 0) dst[PK * LW] = bb[m] * rinv[m];
+        for (int n = 0; n < MCL; ++n) a[m][n] = n + SH < MCL ? a[m][n + SH] : T(0);
       }
     }
   }
-  __syncthreads();
-  store_cy(P - 1);
+  lane_sync<WPL>(lane);
+  write_cy();
+  lane_sync<WPL>(lane);
+  store_rec(P - 1);
+  lane_sync<WPL>(lane);  // the lane's scratch records are visible to its warp 0
 
-  // --- back substitution, layer P-1 down to 0: thread q < K takes row q ----------
-  __syncthreads();  // the block's c | y stores are visible to the block
-  for (int p = P - 1; p >= 0; --p) {
-    const T* cy_p = cy_blk + p * cy_layer;
-    if (p > 0) {
-      const T* nxt = cy_p - cy_layer;
-      for (int e = t * (32 / sizeof(T)); e < K * CS * LW; e += NT * (32 / sizeof(T))) {
-        prefetch_l2(nxt + e);
+  // --- back substitution, layer P-1 down to 0, by warp 0 of each lane --------
+  // thread (g, h) takes rows g + RG m and the column groups h, h + 2, ...;
+  // the next layer's record comes into shared memory (LO, ST, CY: free
+  // now) by cp.async while this one is summed, and the one after into L2
+  if (wq == 0) {
+    const int h = tl % 2;
+    T* const xs = pr;          // x[p + 1], [2][PK], row i at (i % CG) MCL + i / CG
+    T* const rb = ls + S::LO;  // two records, [2][REC]
+    static_assert(2 * S::REC <= S::FR - S::LO, "back substitution buffers");
+    auto fetch = [&](int p) {
+      const T* src = rec0 + p * rec_layer;
+      T* dst = rb + (p & 1) * S::REC;
+      for (int e = tl * V; e < S::REC; e += 32 * V) cp_async<T, V>(dst + e, src + e, true);
+      cp_async_commit();
+      if (p > 0) {
+        constexpr int LINE = 128 / static_cast<int>(sizeof(T));
+        for (int e = tl * LINE; e < S::REC; e += 32 * LINE) prefetch_l2(src - rec_layer + e);
       }
-    }
-    if (q < K) {
-      const T* row = cy_p + q * CS * LW + l;
-      T acc[4] = {row[PK * LW], T(0), T(0), T(0)};
-      if (p < P - 1) {
-        const T* xn = xs + ((p + 1) & 1) * PK * LW + l;
-        int j = 0;
-        for (; j + 4 <= K; j += 4) {
+    };
+    fetch(P - 1);
+    for (int p = P - 1; p >= 0; --p) {
+      if (p > 0) {
+        fetch(p - 1);
+        cp_async_wait_1();
+      } else {
+        cp_async_wait_all();
+      }
+      __syncwarp();  // layer p's record is in shared memory
+      const T* rec = rb + (p & 1) * S::REC;
+      T acc[MR];
 #pragma unroll
-          for (int d = 0; d < 4; ++d) acc[d] -= row[(j + d) * LW] * xn[(j + d) * LW];
+      for (int m = 0; m < MR; ++m) acc[m] = h == 0 ? rec[PK * PK + g + RG * m] : T(0);
+      if (p < P - 1) {
+        const T* xn = xs + ((p + 1) & 1) * PK;
+#pragma unroll
+        for (int q = 0; q < WPL; ++q) {
+          const int grp = h + 2 * q;
+          T xv[MCL];
+          lds_vec<T, MCL>(xv, xn + grp * MCL);
+#pragma unroll
+          for (int m = 0; m < MR; ++m) {
+            T cv[MCL];
+            lds_vec<T, MCL>(cv, rec + (g + RG * m) * PK + grp * MCL);
+#pragma unroll
+            for (int n = 0; n < MCL; ++n) acc[m] -= cv[n] * xv[n];
+          }
         }
-        for (; j < K; ++j) acc[0] -= row[j * LW] * xn[j * LW];
       }
-      const T v = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-      xs[(p & 1) * PK * LW + q * LW + l] = v;
-      if (live) x[p * KW + static_cast<long long>(q) * W + w] = v;
+#pragma unroll
+      for (int m = 0; m < MR; ++m) acc[m] += __shfl_xor_sync(FULL, acc[m], 1);
+      if (h == 0) {
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          const int i = g + RG * m;
+          xs[(p & 1) * PK + (i % CG) * MCL + i / CG] = acc[m];
+          if (live && i < K) x[p * KW + static_cast<long long>(i) * W + w] = acc[m];
+        }
+      }
+      __syncwarp();  // the record and x[p + 1] are read before they are replaced
     }
-    __syncthreads();
   }
 }
 
-// The pivoting branch's tiling per type: LW lanes a block, RG row groups,
-// CG column groups.
+// The pivoting branch's shape per type: LW lanes a block, WPL warps a
+// lane (f32: a warp holds a lane's 48 x 97 system in 147 registers a
+// thread; f64: two warps, 150 registers a thread).
 template <typename T>
 struct PivotTiling;
 template <>
 struct PivotTiling<float> {
-  using S = Pivot<float, 8, 16, 4>;
+  using S = Pivot<float, 8, 1>;
 };
 template <>
 struct PivotTiling<double> {
-  using S = Pivot<double, 4, 16, 8>;
+  using S = Pivot<double, 4, 2>;
 };
 
 template <typename T>
@@ -803,10 +1020,7 @@ int launch_pivot(const void* lo, const void* di, const void* up, const void* r, 
                  void* x, int P, int K, int W, cudaStream_t stream) {
   using S = typename PivotTiling<T>::S;
   const size_t shared = static_cast<size_t>(S::TOTAL) * sizeof(T);
-  constexpr int V = 16 / static_cast<int>(sizeof(T));
-  const bool vec = W % V == 0 && aligned16(lo);
-  auto kernel = vec ? thomas_pivot_kernel<T, S::LANES, S::ROWG, S::COLG, true>
-                    : thomas_pivot_kernel<T, S::LANES, S::ROWG, S::COLG, false>;
+  auto kernel = thomas_pivot_kernel<T, S::LANES, S::WARPS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -842,7 +1056,7 @@ extern "C" int thomas_solve_f32(const void* lo, const void* di, const void* up,
 }
 
 // Elements of the scratch buffer c for one layer: v3's c[p] [K, K, W],
-// or the pivoting branch's c | y of every block [PK][PK + 1][LW]. The
+// or the pivoting branch's c | y of every block, [LW][PK * PK + PK]. The
 // caller allocates P times this; v3 also takes y [P, K, W].
 template <typename S>
 int pivot_scratch(int W) {

@@ -14,8 +14,10 @@ in one of two branches; its header says what bounds each:
 * 24 < K <= 48 (the polarized 16-stream solver's K = 48): Gauss-Jordan
   with partial pivoting, as the JAX package's scan solves those blocks
   (``jnp.linalg.solve``, ``sasktran2_tpu/ops/lanes.py:113-133``), each
-  lane's system in the registers of 64 (f32) or 128 (f64) threads; c is
-  its scratch for c[p] | y[p], sized by ``thomas_scratch_per_layer``.
+  lane's system in the registers of one warp (f32) or two (f64), which
+  synchronise only among themselves, the next pivot searched while a step
+  updates; c is its scratch for c[p] | y[p], sized by
+  ``thomas_scratch_per_layer``.
 
 ``thomas_solve`` launches the kernel for a CUDA tensor and runs
 ``thomas_solve_plain`` (the scan loop of the reference's

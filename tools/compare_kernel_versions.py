@@ -12,10 +12,14 @@ built by the package. An old ``jacobi.cu`` must have the current entry
 points (``ops/jacobi_cuda._SIGNATURE``); the earlier local-memory
 version's interface is not bound (its n = 12 and 24 times stay in
 PERF.md's kernel table). In f32 at the engines' shapes (Thomas
-[100, 16, 16, 1024]; Jacobi [100, n, n, 1024] with 7 sweeps at n = 6, 8, 12
-and 24) the script times old, new, new, old, each by CUDA events, and
-prints the card's name and power limit, the ptxas report of every build,
-each time, and the largest difference between the two versions' outputs.
+[100, 16, 16, 1024], whose outputs must be bit-equal while v3 is
+unchanged, and the pivoting branch at [100, 48, 48, 1024], also in f64,
+and at W = 1 in f64;
+Jacobi [100, n, n, 1024] with 7 sweeps at n = 6, 8, 12 and 24) the
+script times old, new, new, old, each by CUDA events, and prints the
+card's name and power limit, the ptxas report of every build, each time,
+and the largest difference between the two versions' outputs (and at
+K = 48 each version's error against the float64 plain twin).
 Needs a GPU.
 
 Every change that makes one of these kernels faster runs it once, so
@@ -79,38 +83,64 @@ def main():
     f32 = torch.float32
     fns = {}
 
-    # --- Thomas ---------------------------------------------------------------
+    # --- Thomas -----------------------------------------------------------------
     if args.old_thomas is not None:
-        P, K, W = 100, 16, 1024
-        lo, di, up, r = [t.to(f32) for t in thomas_inputs(
-            P, K, W, 3, torch.float64, dev, 13.0)]
         sig = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
-        outs = {}
+        scratch = {}
         for version in ("old", "new"):
-            fns[version] = _bind(libs[version, "thomas"], "thomas_solve_f32",
-                                 sig)
-            outs[version] = (torch.empty_like(di), torch.empty_like(r),
-                             torch.empty_like(r))
+            for dt, name in ((f32, "thomas_solve_f32"),
+                             (torch.float64, "thomas_solve_f64")):
+                fns[version, dt] = _bind(libs[version, "thomas"], name, sig)
+            scratch[version] = _bind(libs[version, "thomas"],
+                                     "thomas_scratch_per_layer",
+                                     (ctypes.c_int,) * 3)
+        # v3 at K = 16; the pivoting branch at K = 48 (pol16's shape) in
+        # f32, and in f64 with fewer repeats; and at W = 1 in f64, the
+        # adjoint of chip_smoke.py phase 28's finite-difference checks
+        for P, K, W, dt, reps in ((100, 16, 1024, f32, 20),
+                                  (100, 48, 1024, f32, 5),
+                                  (100, 48, 1024, torch.float64, 2),
+                                  (100, 48, 1, torch.float64, 5)):
+            shift = 13.0 if K == 16 else 5.0 + 2.0 * K**0.5
+            a64 = thomas_inputs(P, K, W, 3 if K == 16 else 49, torch.float64,
+                                dev, shift)
+            system = [t.to(dt) for t in a64]
+            lo, di, up, r = system
+            outs = {}
+            for version in ("old", "new"):
+                if K <= 24:
+                    bufs = (torch.empty_like(di), torch.empty_like(r))
+                else:
+                    n = P * scratch[version](K, W, int(dt == torch.float64))
+                    c = torch.empty(n, dtype=dt, device=dev)
+                    bufs = (c, c)
+                outs[version] = (*bufs, torch.empty_like(r))
 
-        def thomas(version):
-            c, y, x = outs[version]
-            err = fns[version](lo.data_ptr(), di.data_ptr(), up.data_ptr(),
-                               r.data_ptr(), c.data_ptr(), y.data_ptr(),
-                               x.data_ptr(), P, K, W, stream)
-            _build.check_launch(err, f"{version} thomas")
+            def thomas(version, outs=outs, system=system, P=P, K=K, W=W,
+                       dt=dt):
+                c, y, x = outs[version]
+                err = fns[version, dt](*(t.data_ptr() for t in system),
+                                       c.data_ptr(), y.data_ptr(),
+                                       x.data_ptr(), P, K, W, stream)
+                _build.check_launch(err, f"{version} thomas")
 
-        times = [(v, cuda_ms(lambda v=v: thomas(v), 20))
-                 for v in ("old", "new", "new", "old")]
-        torch.cuda.synchronize()
-        diff = float((outs["old"][2] - outs["new"][2]).abs().max())
-        ref = thomas_cuda.thomas_solve_plain(
-            *[t.double() for t in (lo, di, up, r)])
-        errs = {v: float((outs[v][2].double() - ref).abs().max())
-                for v in ("old", "new")}
-        print(f"[{label}] thomas [{P}, {K}, {K}, {W}] f32, ms per launch in "
-              "turns " + ", ".join(f"{v} {t:.4f}" for v, t in times)
-              + f"; max |x_old - x_new| {diff:.3e}; error vs f64 plain: old "
-              f"{errs['old']:.3e}, new {errs['new']:.3e}", flush=True)
+            times = [(v, cuda_ms(lambda v=v: thomas(v), reps))
+                     for v in ("old", "new", "new", "old")]
+            torch.cuda.synchronize()
+            xo, xn = outs["old"][2], outs["new"][2]
+            diff = float((xo - xn).abs().max())
+            ref = thomas_cuda.thomas_solve_plain(*a64)
+            scale = float(ref.abs().max())
+            errs = {v: float((outs[v][2].double() - ref).abs().max()) / scale
+                    for v in ("old", "new")}
+            del a64, ref
+            tag = "f32" if dt == f32 else "f64"
+            print(f"[{label}] thomas [{P}, {K}, {K}, {W}] {tag}, ms per "
+                  "launch in turns " + ", ".join(f"{v} {t:.4f}" for v, t in times)
+                  + f"; max |x_old - x_new| {diff:.3e} (bit-equal: "
+                  f"{bool(torch.equal(xo, xn))}); error vs f64 plain, "
+                  f"relative to max |x|: old {errs['old']:.3e}, new "
+                  f"{errs['new']:.3e}", flush=True)
 
     # --- Jacobi ---------------------------------------------------------------
     if args.old_jacobi is not None:

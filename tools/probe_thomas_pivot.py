@@ -9,14 +9,21 @@ package), and times each at [100, 48, 48, 1024] f32 by CUDA events, in
 turns (all variants, then all in reverse order), with its error against
 the float64 plain twin and its ptxas report. Needs a GPU.
 
-The variants: the source as it is; the other thread tilings of a lane's
-system (8 x 8 and 4 x 16 row x column groups); one warp per lane finding
-the pivot and publishing it through shared memory (a third barrier a
-step) instead of every warp finding it; and probes that leave out one
-part (the arg-max, with the pivot taken on the diagonal; the next
-column's publishing; the row update; the product lo c[p-1]; the whole
-elimination; the back substitution), whose results are wrong and whose
-times say what that part costs.
+The variants of the design: the source as it is (a warp per lane, the
+steps in unrolled chunks of 8); the pivot search beside the step's
+update (ahead of it, on column s + 1 as the update will leave it)
+instead of after it; the arg-max by butterfly shuffles instead of
+``redux.sync``; chunks of 4 and of 16 steps; the next layer's copies in
+one burst after the product instead of spread over the steps; the back
+substitution reading its records from device memory instead of
+from shared memory, where cp.async brings them a layer ahead. The
+probes leave out one part: the pivot search (the diagonal is taken; the
+inputs do not need pivoting, so the result stays right), the publishing
+of the next pivot row, the step's update, the moving of the denom slots
+between chunks, the product lo c[p-1], the whole elimination, the copies
+of the next layer into shared memory, the back substitution; but for
+the first, their results are wrong and their times say what that part
+costs.
 """
 
 from __future__ import annotations
@@ -31,114 +38,82 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-ARGMAX_SCAN = """      T best = T(-1);
-      int bi = PK;
+COPY = ("        if (k < PPC && c0 / SC * PPC + k < PARTS && p + 1 < P) "
+        "copy_part(p + 1, c0 / SC * PPC + k);\n")
+SEARCH = """            T v[MR];
 #pragma unroll
-      for (int rr = 0; rr < PK / TW; ++rr) {
-        const int i = qq + TW * rr;
-        const T v = ((pivoted >> i) & 1ull) ? T(-1) : fabs(col[i * LW + l]);
-        if (v > best) {
-          best = v;
-          bi = i;
-        }
-      }
-#pragma unroll
-      for (int o = LW; o < 32; o <<= 1) {
-        const T ob = __shfl_xor_sync(FULL, best, o);
-        const int oi = __shfl_xor_sync(FULL, bi, o);
-        if (ob > best || (ob == best && oi < bi)) {
-          best = ob;
-          bi = oi;
-        }
-      }
-      const int piv = bi < PK ? bi : __ffsll(static_cast<long long>(~pivoted)) - 1;
-      pivoted |= 1ull << piv;
-      const T inv = T(1) / col[piv * LW + l];
+            for (int m = 0; m < MR; ++m) v[m] = a[m][c1 / CG];
+            T vp;
+            const int ps1 = find_pivot(v, c1 % 2, vp);
 """
-
-# warp lw < LW finds lane lw's pivot over all 48 rows (the published
-# column lane-major, [lane][PK + 1], so that its reads do not collide in
-# the banks) and publishes it, 1 / pivot and the lane's pivoted rows
-WARP_ARGMAX = """      if (t / 32 < LW) {
-        const int lw = t / 32;
-        const int j = t % 32;
-        const unsigned long long pivoted = masks[lw];
-        T best = T(-1);
-        int bi = PK;
-        for (int i = j; i < PK; i += 32) {
-          const T v = ((pivoted >> i) & 1ull) ? T(-1) : fabs(col[lw * CL + i]);
-          if (v > best) {
-            best = v;
-            bi = i;
-          }
-        }
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const T ob = __shfl_xor_sync(FULL, best, o);
-          const int oi = __shfl_xor_sync(FULL, bi, o);
-          if (ob > best || (ob == best && oi < bi)) {
-            best = ob;
-            bi = oi;
-          }
-        }
-        if (j == 0) {
-          const int pv = bi < PK ? bi : __ffsll(static_cast<long long>(~pivoted)) - 1;
-          masks[lw] = pivoted | (1ull << pv);
-          pvs[lw] = T(pv);
-          pvs[LW + lw] = T(1) / col[lw * CL + pv];
-        }
-      }
-      __syncthreads();  // the pivots are published
-      const int piv = static_cast<int>(pvs[l]);
-      const T inv = pvs[LW + l];
-"""
+PROW = "          const T* const prow = pr + (b * CG + hh) * PW;\n"
 
 VARIANTS = {
     "as_is": [],
-    "tiling_8x8": [("Pivot<float, 8, 16, 4>", "Pivot<float, 8, 8, 8>")],
-    "tiling_4x16": [("Pivot<float, 8, 16, 4>", "Pivot<float, 8, 4, 16>")],
-    "warp_argmax": [
-        ("  static constexpr int ROW = COL + 2 * PK * LW;",
-         "  static constexpr int ROW = COL + 2 * LW * (PK + 1);"),
-        ("  static constexpr int TOTAL = XS + 2 * PK * LW;",
-         "  static constexpr int PV = XS + 2 * PK * LW;\n"
-         "  static constexpr int MASK = PV + 2 * LW;\n"
-         "  static constexpr int TOTAL = MASK + LW * 8 / static_cast<int>(sizeof(T));"),
-        ("  T* xs = sm + S::XS;\n",
-         "  T* xs = sm + S::XS;\n  T* pvs = sm + S::PV;\n"
-         "  auto* masks = reinterpret_cast<unsigned long long*>(sm + S::MASK);\n"
-         "  constexpr int CL = PK + 1;\n"),
-        ("      for (int m = 0; m < MR; ++m) colb[(g + RG * m) * LW + l] = a[m][0];",
-         "      for (int m = 0; m < MR; ++m) colb[l * CL + g + RG * m] = a[m][0];"),
-        ("    unsigned long long pivoted = ~((1ull << K) - 1ull);\n",
-         "    if (t < LW) masks[t] = ~((1ull << K) - 1ull);\n"),
-        ("      const T* col = colb + (s & 1) * PK * LW;",
-         "      const T* col = colb + (s & 1) * LW * CL;"),
-        ("      // the pivot: the largest |column s| over the unpivoted rows, the\n"
-         "      // lowest row on ties; NaN is never chosen\n" + ARGMAX_SCAN,
-         WARP_ARGMAX),
-        ("        f[m] = i == piv ? T(0) : col[i * LW + l];",
-         "        f[m] = i == piv ? T(0) : col[l * CL + i];"),
-        ("      T* cn = colb + ((s + 1) & 1) * PK * LW;",
-         "      T* cn = colb + ((s + 1) & 1) * LW * CL;"),
-        ("          for (int m = 0; m < MR; ++m) cn[(g + RG * m) * LW + l] = a[m][n];",
-         "          for (int m = 0; m < MR; ++m) cn[l * CL + g + RG * m] = a[m][n];"),
+    "search_beside_update": [
+        (PROW, PROW + """          const bool ahead0 = s + 1 < K;
+          T v[MR];
+          T vp = T(1);
+          int ps1 = 0;
+          if (ahead0 && wq == ((k + 1) % CG) / 2) {
+            const T pv1 = prow[(k + 1) / CG];
+#pragma unroll
+            for (int m = 0; m < MR; ++m) v[m] = a[m][(k + 1) / CG] - f[m] * pv1;
+            ps1 = find_pivot(v, (k + 1) % 2, vp);
+          }
+"""),
+        (SEARCH, "")],
+    "argmax_shuffles": [
+        ("  return __reduce_max_sync(FULL, k);",
+         "  for (int o = 16; o > 0; o >>= 1) {\n"
+         "    const unsigned ok = __shfl_xor_sync(FULL, k, o);\n"
+         "    k = ok > k ? ok : k;\n  }\n  return k;"),
+        ("static_cast<int>(__reduce_min_sync(FULL, cand))",
+         "static_cast<int>([&] {\n      unsigned c = cand;\n"
+         "      for (int o = 16; o > 0; o >>= 1) {\n"
+         "        const unsigned oc = __shfl_xor_sync(FULL, c, o);\n"
+         "        c = oc < c ? oc : c;\n      }\n      return c;\n    }())"),
     ],
-    "no_argmax": [(ARGMAX_SCAN, "      const int piv = s;\n"
-                   "      pivoted |= 1ull << piv;\n"
-                   "      const T inv = T(1) / col[piv * LW + l];\n")],
-    "no_column_publish": [("        if (h + CG * n == s + 1) {",
-                           "        if (h + CG * n == s + 1 && K < 0) {")],
-    "no_row_update": [
-        ("a[m][n] -= f[m] * rv;", "a[m][n] += T(0) * f[m];"),
-        ("u[m][n] -= f[m] * rv;", "u[m][n] += T(0) * f[m];"),
-        ("bb[m] -= f[m] * rv;", "bb[m] += T(0) * f[m];"),
+    "chunks_of_4": [("  constexpr int SC = 8;", "  constexpr int SC = 4;")],
+    "chunks_of_16": [("  constexpr int SC = 8;", "  constexpr int SC = 16;")],
+    "copies_in_a_burst": [
+        (COPY, ""),
+        ("    if (p + 1 < P) load_r(p + 1);",
+         "    if (p + 1 < P) {\n      load_r(p + 1);\n"
+         "      for (int part = 0; part < PARTS; ++part) copy_part(p + 1, part);\n    }")],
+    "back_substitution_from_global": [
+        ("      __syncwarp();  // layer p's record is in shared memory\n"
+         "      const T* rec = rb + (p & 1) * S::REC;",
+         "      __syncwarp();  // layer p's record is in shared memory\n"
+         "      const T* rec = rec0 + p * rec_layer;")],
+    # the probes: each leaves out one part
+    "no_search": [(SEARCH, """            T v[MR];
+#pragma unroll
+            for (int m = 0; m < MR; ++m) v[m] = a[m][c1 / CG];
+            T vp;
+            const int ps1 = s + 1;
+            {
+              T vs = v[0];
+#pragma unroll
+              for (int m = 1; m < MR; ++m) vs = ps1 / RG == m ? v[m] : vs;
+              vp = __shfl_sync(FULL, vs, 2 * (ps1 % RG) + c1 % 2);
+            }
+""")],
+    "no_publish": [("            publish(ps1, b ^ 1, k == SC - 1 ? SH : 0);\n", "")],
+    "denom_every_slot_every_chunk": [("            if (c0 < PK / 2) {\n", "            {\n")],
+    "no_update": [
+        ("a[m][q * V + d] -= f[m] * pv[d];", "a[m][q * V + d] += T(0);"),
+        ("u[m][n] -= f[m] * pv[d];", "u[m][n] += T(0);"),
     ],
-    "no_product": [("    if (p > 0) {\n#pragma unroll 4", "    if (p < 0) {\n#pragma unroll 4")],
-    "no_elimination": [("    for (int s = 0; s < K; ++s) {\n      const T* col",
-                        "    for (int s = 0; s < 0; ++s) {\n      const T* col")],
-    "no_back_substitution": [("  for (int p = P - 1; p >= 0; --p) {\n    const T* cy_p",
-                              "  for (int p = P - 1; p >= P; --p) {\n    const T* cy_p")],
+    "no_chunk_shift": [("a[m][n] = n + SH < MCL ? a[m][n + SH] : T(0);", "a[m][n] += T(0);")],
+    "no_product": [("      for (int k = 0; k < K; ++k) {\n        T lv[MR], cv[MCL];",
+                    "      for (int k = 0; k < 0; ++k) {\n        T lv[MR], cv[MCL];")],
+    "no_elimination": [("    for (int c0 = 0; c0 < K; c0 += SC) {",
+                        "    for (int c0 = 0; c0 < 0; c0 += SC) {")],
+    "no_copies": [(COPY, "")],
+    "no_back_substitution": [
+        ("    for (int p = P - 1; p >= 0; --p) {\n      if (p > 0) {\n        fetch(p - 1);",
+         "    for (int p = P - 1; p >= P; --p) {\n      if (p > 0) {\n        fetch(p - 1);")],
 }
 
 
