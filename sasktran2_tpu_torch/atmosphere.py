@@ -25,6 +25,7 @@ import logging
 
 import numpy as np
 
+from . import spans
 from .basis import Grid, mapping_matrix
 from .config import Config, EmissionSource, SpectralGridMode
 
@@ -361,6 +362,7 @@ class Atmosphere:
         return self.model_geometry.altitudes()
 
     # --- pipeline ---------------------------------------------------------
+    @spans.spanned("atmosphere")
     def internal_object(self) -> dict:
         """Run the constituent pipeline and return the core pytree that the
         Engine's jitted compute function consumes (reference
@@ -380,17 +382,22 @@ class Atmosphere:
                 self._leg_view = LegendreStorageView(
                     self.storage.leg_coeff, self.nstokes
                 )
-            self.storage.set_zero()
-            self.surface.set_zero()
-            self.storage._derivative_mappings = {}
-            self.surface._derivative_mappings = {}
+            with spans.span("zero"):
+                self.storage.set_zero()
+                self.surface.set_zero()
+                self.storage._derivative_mappings = {}
+                self.surface._derivative_mappings = {}
             try:
-                for _, constituent in self._constituents.items():
-                    constituent.add_to_atmosphere(self)
-                self.storage.normalize_by_extinctions()
+                for name, constituent in self._constituents.items():
+                    with spans.span("constituent", key=name, phase="add"):
+                        constituent.add_to_atmosphere(self)
+                with spans.span("normalize"):
+                    self.storage.normalize_by_extinctions()
                 if self.calculate_derivatives:
                     for name, constituent in self._constituents.items():
-                        constituent.register_derivative(self, name)
+                        with spans.span("constituent", key=name,
+                                        phase="derivative"):
+                            constituent.register_derivative(self, name)
             except Exception:
                 self.storage.set_zero()
                 self.storage._derivative_mappings = {}
@@ -420,7 +427,8 @@ class Atmosphere:
         if self.config.delta_m_scaling:
             self._apply_delta_m_scaling()
 
-        return self._core_pytree()
+        with spans.span("layout"):
+            return self._core_pytree()
 
     def _reduce_spectral(self):
         """Reduce the fine-grid storage onto the output basis grid

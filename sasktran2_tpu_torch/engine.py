@@ -64,6 +64,7 @@ from .config import (
     SingleScatterSource,
     StokesBasis,
 )
+from . import spans
 from .dataset import DataArray, Dataset
 from .device import resolve_device, resolve_dtype
 from .geometry import Geometry1D, Geometry2D
@@ -979,10 +980,11 @@ class Engine:
                 1, torch.as_tensor(idx, device=ext.device), r
             )
         for (idx, _), tables_list in zip(self._limb_groups, limb_tables):
-            sources = [limb_source(tables) for tables in tables_list]
-            ms_rad = self._limb_radiance(
-                ext, [s[0] for s in sources], [s[1] for s in sources]
-            )
+            with spans.span("limb_source"):
+                sources = [limb_source(tables) for tables in tables_list]
+                ms_rad = self._limb_radiance(
+                    ext, [s[0] for s in sources], [s[1] for s in sources]
+                )
             idx_t = torch.as_tensor(idx, device=ext.device)
             rad = rad.index_add(1, idx_t, ms_rad.index_select(1, idx_t))
         return rad
@@ -1122,6 +1124,23 @@ class Engine:
         W = ext.shape[0]
         rad = torch.zeros((W, len(self._rays)), dtype=ext.dtype,
                           device=ext.device)
+        los = (self._needs_ss_exact
+               or cfg.emission_source != EmissionSource.NoSource
+               or cfg.occultation_source == OccultationSource.Standard)
+        with spans.span("los_sources") if los else spans.NULL:
+            rad = self._los_sources(core, rad)
+        if self._needs_so:
+            with spans.span("so"):
+                rad = rad + self._so_radiance(core)
+        if self._needs_do:
+            rad = rad + self._do_groups_batched(core)
+        return rad
+
+    def _los_sources(self, core, rad):
+        """``rad`` plus the line-of-sight sources: exact single scatter,
+        emission and occultation; [W, nlos, 3] where polarized."""
+        cfg = self._config
+        ext = core["extinction"]
         if self._needs_ss_exact and not self._polarized:
             # exact single scatter is solar-driven: it scales with F0
             rad = rad + core["solar_irradiance"][:, None] * (
@@ -1152,10 +1171,6 @@ class Engine:
                         self._d02_tab,
                     )
                 )
-        if self._needs_so:
-            rad = rad + self._so_radiance(core)
-        if self._needs_do:
-            rad = rad + self._do_groups_batched(core)
         return rad
 
     def _radiance_2d(self, core):
@@ -1280,6 +1295,7 @@ class Engine:
         ms = singlescatter.integrate_od_source(ext, j_in, j_out, self._traced)
         return f0[:, None] * (ms + i_ground_ray * ground_t)
 
+    @spans.spanned("forward")
     def _outputs(self, core):
         """The outputs of one call as blocks of [W, n] columns: the
         radiance of each line of sight (and Stokes component, I, Q, U
@@ -1290,10 +1306,12 @@ class Engine:
         W = core["extinction"].shape[0]
         blocks = [self._radiance(core).reshape(W, -1)]
         if self._flux_groups:
-            blocks.append(self._flux_groups_batched(core).reshape(W, -1))
+            with spans.span("flux"):
+                blocks.append(self._flux_groups_batched(core).reshape(W, -1))
         return blocks
 
     # ------------------------------------------------------------------
+    @spans.root_call
     def calculate_radiance(self, atmosphere: Atmosphere, mesh=None) -> Dataset:
         """Run the forward model and, when the atmosphere asks for them,
         the weighting functions.
@@ -1328,9 +1346,10 @@ class Engine:
         core_np = atmosphere.internal_object()
         nloc = self._geometry.num_altitudes * (
             self._geometry.num_horizontal if self._is_2d else 1)
-        validate_atmosphere_core(
-            core_np, nloc, self._config.input_validation_mode,
-        )
+        with spans.span("validate"):
+            validate_atmosphere_core(
+                core_np, nloc, self._config.input_validation_mode,
+            )
         self._brdf = atmosphere.surface.brdf
         # the route, as the JAX engine chooses it at trace time
         self._fast_route = (
@@ -1362,14 +1381,27 @@ class Engine:
             m.log_radiance_space for m in mappings.values()
         ):
             warnings.warn(_F32_AMF_WARNING, stacklevel=2)
-        core = core_from_reference(core_np, self._device, self._dtype)
+        with spans.span("upload") as span:
+            core = core_from_reference(core_np, self._device, self._dtype)
+            if span:
+                span.count(bytes=spans.nbytes(core.values()))
         # with a mesh, each block builds what it lacks of the lazily built
         # tables (its device's SO plans and 2D operators, the Chapman
         # factors, the generic route's tables) through ``self._lazy``
         blocks = (self._compute(core, wrt) if mesh is None
                   else sharded_radiance_fn(
                       lambda block: self._compute(block, wrt), mesh)(core))
-        flat = torch.cat([b.reshape(-1) for b in blocks]).cpu().numpy()
+        with spans.span("copy") as span:
+            flat = torch.cat([b.reshape(-1) for b in blocks]).cpu().numpy()
+            if span:
+                span.count(bytes=flat.nbytes)
+        return self._dataset(atmosphere, blocks, flat, wrt, needs_jac)
+
+    @spans.spanned("dataset")
+    def _dataset(self, atmosphere, blocks, flat, wrt, needs_jac):
+        """The output ``Dataset`` of one call from the host copy ``flat``
+        of the device ``blocks``, with the weighting functions of ``wrt``
+        where ``needs_jac``."""
         pieces = np.split(flat, np.cumsum([b.numel() for b in blocks])[:-1])
         host = [p.reshape(b.shape) for p, b in zip(pieces, blocks)]
         grads = dict(zip(wrt, host[1:]))
@@ -1423,10 +1455,11 @@ class Engine:
         blocks = [torch.cat([o.detach() for o in outputs], dim=1)]
         if wrt:
             inputs = [core[k] for k in wrt]
-            rows = [
-                self._jacobian_row(col, inputs, i < len(columns) - 1)
-                for i, col in enumerate(columns)
-            ]
+            rows = []
+            for i, col in enumerate(columns):
+                with spans.span("rows", row=i):
+                    rows.append(self._jacobian_row(col, inputs,
+                                                   i < len(columns) - 1))
             # [W, nout, ...] per input, as the JAX engine lays them out
             blocks += [
                 torch.stack([row[j] for row in rows], dim=1)
@@ -1482,6 +1515,7 @@ class Engine:
                 for g, t in zip(grads, inputs)]
 
     # ------------------------------------------------------------------
+    @spans.spanned("assembly")
     def _assemble_wfs(self, out: Dataset, atmosphere: Atmosphere, grads, nlos):
         """Map core-space gradients [W, nout, A(, L)] through the
         atmosphere's derivative mappings (``engine.py:1869``): radiance

@@ -6,6 +6,8 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 
+from . import spans
+
 
 def bounded_memo(cache: OrderedDict, key, build, size: int):
     """``cache[key]``, built by ``build()`` where it is missing. ``cache``
@@ -33,7 +35,9 @@ class LazyTables:
         """The table ``key``, built by ``build()`` at the first request."""
         with self._lock:
             if key not in self._tables:
-                self._tables[key] = build()
+                with spans.span("tables", table=key if isinstance(key, str)
+                                else key[0]):
+                    self._tables[key] = build()
             return self._tables[key]
 
     def keys(self) -> list:

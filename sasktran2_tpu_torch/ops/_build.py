@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import threading
 
+from .. import spans
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -94,7 +96,10 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            with spans.span("kernel_load", kernel=name) as span:
+                if span:
+                    span.count(nvcc=int(not os.path.exists(library_path(name))))
+                lib = ctypes.CDLL(build(name))
             for fn_name, argtypes in signatures.items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = list(argtypes)

@@ -17,6 +17,7 @@ import numpy as np
 
 import torch
 
+from .. import spans
 from ..ops.eigen import jacobi_eigh
 from ..ops.linalg import block_tridiag_solve, cholesky, ddiff2, ediff, solve_upper
 from ..ops.quadrature import streams
@@ -733,12 +734,14 @@ def solve_plane_parallel(
             brdf, brdf_args, torch.as_tensor(mu, dtype=dt, device=dev),
             user_mu, mu0, np.arange(M))
 
-    rad_modes, levels, internal = _solve_one_mode(
-        modes, lam, lam_sun, lam_user, parity,
-        dtau, omega, beta, t_top, sbar, t_ground,
-        albedo, mu, w, mu0, user_mu, user_up_t, include_ss,
-        f0, thermal, surface_ops,
-    )
+    # every azimuth mode in one batch: one span for all of them
+    with spans.span("do_mode", mode=0, modes=M, recompute=0):
+        rad_modes, levels, internal = _solve_one_mode(
+            modes, lam, lam_sun, lam_user, parity,
+            dtau, omega, beta, t_top, sbar, t_ground,
+            albedo, mu, w, mu0, user_mu, user_up_t, include_ss,
+            f0, thermal, surface_ops,
+        )
     # azimuth synthesis I(u) = sum_m I_m(u) cos(m (pi - dphi_u))
     m_t = torch.arange(M, dtype=dt, device=dev)
     cosines = torch.cos(m_t[:, None] * (math.pi - user_azimuth[None, :]))

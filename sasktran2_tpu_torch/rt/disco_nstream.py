@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..ops.lanes import (
     lane_block_thomas_solve,
     lane_cholesky,
@@ -366,6 +367,9 @@ def _mode_radiance(
     return rad
 
 
+_replayed_mode = spans.replayed_mode(_mode_radiance)
+
+
 def solve_nstream(
     dtau,
     omega,
@@ -452,23 +456,25 @@ def solve_nstream(
     rad = torch.zeros((U, W), dtype=dt, device=dev)
     levels = []
     for m in range(M):
-        args = (
-            m,
-            const(tables.lam_stream[m, :luse]),
-            const(tables.lam_sun[m, :luse]),
-            const(tables.lam_user[m, :luse]),
-            const(tables.parity[m, :luse]),
-            dtau, omega, beta, t_top, sbar, t_ground,
-            albedo, mu, w, mu0, user_mu, user_up_t, include_ss, f0,
-            thermal, return_internal,
-            None if surface_ops is None else {
-                k: v[m] for k, v in surface_ops.items()
-            },
-        )
-        if torch.is_grad_enabled():
-            r_m = checkpoint(_mode_radiance, *args, use_reentrant=False)
-        else:
-            r_m = _mode_radiance(*args)
+        with spans.span("do_mode", mode=m, recompute=0) as span:
+            tab = tuple(const(t[m, :luse]) for t in (
+                tables.lam_stream, tables.lam_sun, tables.lam_user,
+                tables.parity))
+            if span:
+                span.count(table_bytes=spans.nbytes(tab))
+            args = (
+                m, *tab,
+                dtau, omega, beta, t_top, sbar, t_ground,
+                albedo, mu, w, mu0, user_mu, user_up_t, include_ss, f0,
+                thermal, return_internal,
+                None if surface_ops is None else {
+                    k: v[m] for k, v in surface_ops.items()
+                },
+            )
+            if torch.is_grad_enabled():
+                r_m = checkpoint(_replayed_mode, *args, use_reentrant=False)
+            else:
+                r_m = _mode_radiance(*args)
         if return_internal:
             r_m, lv = r_m
             levels.append(lv)

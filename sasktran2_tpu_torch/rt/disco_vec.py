@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import spans
 from ..ops.linalg import ediff
 from ..ops.quadrature import streams
 from ..ops.wigner import wigner_d
@@ -443,12 +444,14 @@ def solve_plane_parallel_vector(
             brdf, brdf_args, torch.as_tensor(mu, dtype=dt, device=dev),
             user_mu, mu0, np.arange(M))
 
-    rad_modes, levels = _solve_one_mode_vec(
-        modes, pi, d0_sun, pi_user, parity,
-        dtau, omega_c, bgreek, t_top, sbar, t_ground,
-        albedo, mu, w, mu0, user_mu, user_up_t, include_ss, f0,
-        thermal, surface_ops,
-    )
+    # every azimuth mode in one batch: one span for all of them
+    with spans.span("do_mode", mode=0, modes=M, recompute=0):
+        rad_modes, levels = _solve_one_mode_vec(
+            modes, pi, d0_sun, pi_user, parity,
+            dtau, omega_c, bgreek, t_top, sbar, t_ground,
+            albedo, mu, w, mu0, user_mu, user_up_t, include_ss, f0,
+            thermal, surface_ops,
+        )
     m_t = torch.arange(M, dtype=dt, device=dev)
     dphi = math.pi - user_azimuth
     cosm = torch.cos(m_t[:, None] * dphi[None, :])

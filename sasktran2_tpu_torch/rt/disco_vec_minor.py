@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..ops.lanes import (
     lane_block_thomas_solve,
     lane_cholesky,
@@ -476,6 +477,9 @@ def _mode_radiance_vec(
     return rad
 
 
+_replayed_mode_vec = spans.replayed_mode(_mode_radiance_vec)
+
+
 def solve_nstream_vector(
     dtau,
     omega,
@@ -547,31 +551,35 @@ def solve_nstream_vector(
     rad = torch.zeros((U, NS, W), dtype=dt, device=dev)
     levels = []
     for m in range(M):
-        tab = tuple(
-            const(t)
-            for t in (
-                tables.kernel_a[m, :, :luse],
-                tables.kernel_b[m, :, :luse],
-                tables.q_plus[m, :, :luse],
-                tables.q_minus[m, :, :luse],
-                tables.stream_sum[m, :luse],
-                tables.par_d[m, :luse],
-                tables.user_up[m, :, :luse],
-                tables.user_dn[m, :, :luse],
-                tables.beam_user_up[m, :, :luse],
-                tables.beam_user_dn[m, :, :luse],
+        with spans.span("do_mode", mode=m, recompute=0) as span:
+            tab = tuple(
+                const(t)
+                for t in (
+                    tables.kernel_a[m, :, :luse],
+                    tables.kernel_b[m, :, :luse],
+                    tables.q_plus[m, :, :luse],
+                    tables.q_minus[m, :, :luse],
+                    tables.stream_sum[m, :luse],
+                    tables.par_d[m, :luse],
+                    tables.user_up[m, :, :luse],
+                    tables.user_dn[m, :, :luse],
+                    tables.beam_user_up[m, :, :luse],
+                    tables.beam_user_dn[m, :, :luse],
+                )
             )
-        )
-        args = (
-            m, tab,
-            dtau, omega, greeks, t_top, sbar, t_ground,
-            albedo, mu, w, mu0, user_mu, user_up_t, include_ss, f0,
-            return_internal,
-        )
-        if torch.is_grad_enabled():
-            r_m = checkpoint(_mode_radiance_vec, *args, use_reentrant=False)
-        else:
-            r_m = _mode_radiance_vec(*args)
+            if span:
+                span.count(table_bytes=spans.nbytes(tab))
+            args = (
+                m, tab,
+                dtau, omega, greeks, t_top, sbar, t_ground,
+                albedo, mu, w, mu0, user_mu, user_up_t, include_ss, f0,
+                return_internal,
+            )
+            if torch.is_grad_enabled():
+                r_m = checkpoint(_replayed_mode_vec, *args,
+                                 use_reentrant=False)
+            else:
+                r_m = _mode_radiance_vec(*args)
         if return_internal:
             r_m, lv = r_m
             levels.append(lv)

@@ -27,15 +27,11 @@ time / wall time), the number of device kernels, the launches of both
 CUDA kernels (in all and per block size K or matrix order n; the
 polarized 16-stream BVP is the Thomas kernel at K = 48), the SO transport
 steps (``rt.successive.transport_step.calls``), and the operators with
-the most self device time. Device time is kernel and copy time. Then,
-without the profiler, one warm call with
-and one without Jacobians give the Jacobian rows' share of the call, and
-split it on the host clock (each part ending in a device synchronize):
-the atmosphere's constituent pipeline (``internal_object``), the device
-compute (``Engine._compute``: the forward model, the Jacobian rows and
-the LOS optical depth), the WF assembly (``Engine._assemble_wfs``, numpy)
-and the rest (the one host copy, validation, the output ``Dataset``).
-Needs a GPU.
+the most self device time. Device time is kernel and copy time. Then
+the port's own spans of the call (``sasktran2_tpu_torch.spans``, recorded
+while the profiler runs, no synchronize): per span name, the count, the
+host time and the self time (less the child spans'), and the Jacobian
+rows' share of the call. Needs a GPU.
 
 ``--time N`` skips the profiler: after the cold call it times N warm
 calls with Jacobians (host clock, each ending in a device synchronize)
@@ -69,6 +65,7 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from sasktran2_tpu_torch import spans
     from sasktran2_tpu_torch.ops import jacobi_cuda, thomas_cuda
     from sasktran2_tpu_torch.rt import successive
 
@@ -78,6 +75,7 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
     jacobi_cuda.jacobi_eigh.launches = 0
     jacobi_cuda.jacobi_eigh.launches_by_n = {}
     torch.cuda.synchronize()
+    spans.RECORDER.clear()
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
@@ -86,9 +84,11 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
+    # the spans' ranges show on the device's timeline too: left out
     kernels = [
         e for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.is_user_annotation
     ]
     device_s = sum(e.device_time_total for e in kernels) / 1e6
     print(f"[{label}] wall {wall:.4f} s (profiler on), device time "
@@ -100,9 +100,12 @@ def profile_call(engine, atmo, label, trace_path=None, top=15):
           f"{jacobi_cuda.jacobi_eigh.launches} "
           f"{jacobi_cuda.jacobi_eigh.launches_by_n}, SO transport steps "
           f"{successive.transport_step.calls}", flush=True)
-    rows = sorted(prof.key_averages(), key=_device_us, reverse=True)[:top]
+    rows = sorted((e for e in prof.key_averages()
+                   if not e.is_user_annotation),
+                  key=_device_us, reverse=True)[:top]
     for e in rows:
         print(f"    {_device_us(e) / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    print_spans(list(spans.RECORDER.spans), label)
     if trace_path:
         os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
         prof.export_chrome_trace(trace_path)
@@ -184,53 +187,20 @@ def main():
     atmo.calculate_derivatives = False
     engine.calculate_radiance(atmo)
     profile_call(engine, atmo, f"{card}] [{args.case} radiance only")
-    walls, parts = {}, {}
-    for jac in (True, False):
-        atmo.calculate_derivatives = jac
-        parts[jac] = {}
-        timed_parts(engine, atmo, parts[jac])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            engine.calculate_radiance(atmo)
-            torch.cuda.synchronize()
-        finally:
-            for obj, name in ((engine, "_compute"), (engine, "_assemble_wfs"),
-                              (atmo, "internal_object")):
-                vars(obj).pop(name, None)
-        walls[jac] = time.perf_counter() - t0
-    print(f"[{card}] [{args.case}] without the profiler: {walls[True]:.4f} s "
-          f"with Jacobians, {walls[False]:.4f} s without; Jacobian rows' "
-          f"share {(walls[True] - walls[False]) / walls[True]:.3f}",
-          flush=True)
-    for jac in (True, False):
-        rest = walls[jac] - sum(parts[jac].values())
-        print(f"[{card}] [{args.case}] {'with' if jac else 'without'} "
-              "Jacobians, host clock: "
-              + "; ".join(f"{k} {v:.4f} s" for k, v in parts[jac].items())
-              + f"; rest {rest:.4f} s", flush=True)
 
 
-def timed_parts(engine, atmo, parts):
-    """Shadow the engine's ``_compute`` and ``_assemble_wfs`` and the
-    atmosphere's ``internal_object`` with timed wrappers (instance
-    attributes, which the caller removes): each adds its host-clock time,
-    device synchronized, to ``parts``."""
-    import torch
+def print_spans(recorded, label):
+    """The port's spans of one call, by name: count, host seconds and self
+    seconds (less the child spans'); and the rows' share of the call."""
+    from sasktran2_tpu_torch.spans import totals
 
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return wrapper
-
-    engine._compute = timed("device compute", engine._compute)
-    engine._assemble_wfs = timed("WF assembly", engine._assemble_wfs)
-    atmo.internal_object = timed("constituent pipeline", atmo.internal_object)
+    by_name = totals(recorded)
+    call = by_name.get("call", [0, 0.0])[1]
+    rows = by_name.get("rows", [0, 0.0])[1]
+    print(f"[{label}] spans (count, host s, self s); rows' share "
+          f"{rows / call if call else 0.0:.3f}", flush=True)
+    for name, (n, host, own) in by_name.items():
+        print(f"    {name:<12s} x{n:<5d} {host:10.4f} {own:10.4f}")
 
 
 if __name__ == "__main__":
