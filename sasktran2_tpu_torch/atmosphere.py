@@ -9,10 +9,15 @@ or through constituents, plus per-name derivative mappings that turn the
 engine's core-space gradients (d radiance / d extinction, ssa, leg, ...)
 into user weighting functions (``wf_*``).
 
-TPU design note: this container is host-side state. ``internal_object()``
-produces a plain dict-of-numpy pytree that the Engine feeds to its jitted
-compute function; the constituent pipeline runs in numpy exactly once per
-calculation, like the reference.
+Design note: this container is host-side state. The constituent pipeline
+runs in numpy exactly once per calculation, like the reference, in
+``internal_object()``. Its handoff to the engine is the storage's own
+arrays as they lie (``internal_object(native=True)``: [A, W] and the
+Legendre stack [L or 4L, A, W], no copy); the engine uploads them and
+makes its wavelength-leading tensors on the device. Called plainly,
+``internal_object()`` returns those tensors' layout as a dict of numpy
+copies (``wavelength_leading``), the dict the JAX package's
+``internal_object()`` returns.
 
 (Copy of ``sasktran2_tpu/atmosphere.py`` for the PyTorch port: every
 spectral grid mode, the two integrated line-shape modes included; on a ``Geometry2D`` the storage holds one row per location,
@@ -363,10 +368,12 @@ class Atmosphere:
 
     # --- pipeline ---------------------------------------------------------
     @spans.spanned("atmosphere")
-    def internal_object(self) -> dict:
-        """Run the constituent pipeline and return the core pytree that the
-        Engine's jitted compute function consumes (reference
-        ``atmosphere.py:700-835``)."""
+    def internal_object(self, *, native: bool = False) -> dict:
+        """Run the constituent pipeline (reference ``atmosphere.py:700-835``)
+        and return the core arrays: the wavelength-leading numpy copies of
+        ``wavelength_leading``, or with ``native`` the storage's own arrays
+        without a copy (``_native_core``), which the engine uploads as they
+        lie. The ``layout`` span counts ``host_bytes``, the bytes copied."""
         if len(self._constituents) > 0:
             logging.debug("Setting atmosphere from constituents")
             if (
@@ -427,8 +434,14 @@ class Atmosphere:
         if self.config.delta_m_scaling:
             self._apply_delta_m_scaling()
 
-        with spans.span("layout"):
-            return self._core_pytree()
+        with spans.span("layout") as span:
+            core = self._native_core()
+            if not native:
+                core = wavelength_leading(core, self.nstokes, _host_transpose)
+            if span:
+                span.count(host_bytes=0 if native else sum(
+                    v.nbytes for v in core.values()))
+            return core
 
     def _reduce_spectral(self):
         """Reduce the fine-grid storage onto the output basis grid
@@ -543,28 +556,59 @@ class Atmosphere:
         self._leg_view = LegendreStorageView(self.storage.leg_coeff, self.nstokes)
         self._applied_delta_m_order = M
 
-    def _core_pytree(self) -> dict:
-        """Core arrays in the [wavelength-leading] layout used by the jitted
-        engine compute path."""
+    def _native_core(self) -> dict:
+        """The engine's handoff: the storage's and the surface's arrays as
+        they lie, no copy. extinction, ssa and emission [A, W]; leg_coeff
+        the whole Legendre stack [L, A, W] (scalar) or [4L, A, W] (a1, a2,
+        a3, b1 interleaved, ``split_greeks``); albedo, surface_emission and
+        solar_irradiance [W]; brdf_args [W, nargs] under a BRDF."""
         s = self.storage
-
-        def to_wal(x):
-            # [L, A, W] -> [W, A, L]
-            return np.ascontiguousarray(np.transpose(x, (2, 1, 0)))
-
         core = {
-            "extinction": np.ascontiguousarray(s.total_extinction.T),  # [W, A]
-            "ssa": np.ascontiguousarray(s.ssa.T),  # [W, A]
-            "leg_coeff": to_wal(self.leg_coeff.a1),  # [W, A, L]
-            "albedo": self.surface.albedo.copy(),  # [W]
-            "emission": np.ascontiguousarray(s.emission_source.T),  # [W, A]
-            "surface_emission": self.surface.emission.copy(),  # [W]
-            "solar_irradiance": s.solar_irradiance.copy(),  # [W]
+            "extinction": s.total_extinction,
+            "ssa": s.ssa,
+            "leg_coeff": self._leg_view._leg,
+            "albedo": self.surface.albedo,
+            "emission": s.emission_source,
+            "surface_emission": self.surface.emission,
+            "solar_irradiance": s.solar_irradiance,
         }
-        if self.nstokes == 3:
-            core["leg_a2"] = to_wal(self.leg_coeff.a2)
-            core["leg_a3"] = to_wal(self.leg_coeff.a3)
-            core["leg_b1"] = to_wal(self.leg_coeff.b1)
         if self.surface.brdf is not None:
-            core["brdf_args"] = np.ascontiguousarray(self.surface.brdf_args)
+            core["brdf_args"] = self.surface.brdf_args
         return core
+
+
+def split_greeks(stack, nstokes: int) -> dict:
+    """The core's Legendre keys as views of the stack [L*, A, W] (numpy or
+    torch), read through ``LegendreStorageView``: a1 (``leg_coeff``) alone
+    for scalar, a1, a2, a3 and b1 polarized."""
+    view = LegendreStorageView(stack, nstokes)
+    greeks = ("a1",) if nstokes == 1 else ("a1", "a2", "a3", "b1")
+    keys = ("leg_coeff", "leg_a2", "leg_a3", "leg_b1")
+    return {k: getattr(view, g) for k, g in zip(keys, greeks)}
+
+
+def wavelength_leading(native: dict, nstokes: int, transpose) -> dict:
+    """The engine's core arrays from the native handoff
+    (``Atmosphere._native_core``): extinction, ssa and emission [W, A],
+    each greek [W, A, L], the 1-D arrays [W] and brdf_args [W, nargs].
+    ``transpose(x, axes)`` returns a contiguous copy of ``x`` (numpy or
+    torch) with its axes permuted."""
+    greeks = {k: transpose(v, (2, 1, 0))
+              for k, v in split_greeks(native["leg_coeff"], nstokes).items()}
+    core = {
+        "extinction": transpose(native["extinction"], (1, 0)),
+        "ssa": transpose(native["ssa"], (1, 0)),
+        "leg_coeff": greeks.pop("leg_coeff"),
+        "albedo": transpose(native["albedo"], (0,)),
+        "emission": transpose(native["emission"], (1, 0)),
+        "surface_emission": transpose(native["surface_emission"], (0,)),
+        "solar_irradiance": transpose(native["solar_irradiance"], (0,)),
+        **greeks,
+    }
+    if "brdf_args" in native:
+        core["brdf_args"] = transpose(native["brdf_args"], (0, 1))
+    return core
+
+
+def _host_transpose(x, axes):
+    return np.array(np.transpose(x, axes), order="C")

@@ -52,7 +52,7 @@ import warnings
 import numpy as np
 import torch
 
-from .atmosphere import Atmosphere
+from .atmosphere import Atmosphere, split_greeks
 from .config import (
     Config,
     EmissionSource,
@@ -70,7 +70,7 @@ from .device import resolve_device, resolve_dtype
 from .geometry import Geometry1D, Geometry2D
 from .memo import LazyTables
 from .ops.wigner import legendre_p
-from .params import core_from_reference
+from .params import upload_core
 from .parallel import Mesh, sharded_radiance_fn
 from .rt import disco, disco_vec, do_source, singlescatter, successive
 from .rt.disco_nstream import solve_nstream, solve_nstream_m0_levels
@@ -793,23 +793,21 @@ class Engine:
             torch.flip(beta, (-2,)),
         )
 
-    def _effective_num_azimuth(self, core_np):
+    def _effective_num_azimuth(self, greeks):
         """Azimuth modes past the phase expansion's support contribute
         exactly zero, so the mode loop stops there (``engine.py:1295``;
         a Rayleigh atmosphere at nstr=16 solves 3 modes). Polarized
-        engines count the support of every greek. None (every mode) under
+        engines count the support of every greek (``greeks``: each
+        [L, A, W], ``atmosphere.split_greeks``). None (every mode) under
         forced azimuth and under a BRDF, whose azimuth moments couple the
         direct beam into every mode whatever the phase expansion
         (``engine.py:1312``)."""
         if self._config.num_forced_azimuth > 0 or self._brdf is not None:
             return None
         lmax = 0
-        for key in ("leg_coeff", "leg_a2", "leg_a3", "leg_b1"):
-            arr = core_np.get(key)
-            if arr is None:
-                continue
+        for arr in greeks.values():
             arr = np.asarray(arr)
-            nz = np.any(arr != 0.0, axis=tuple(range(arr.ndim - 1)))
+            nz = np.any(arr != 0.0, axis=tuple(range(1, arr.ndim)))
             if nz.any():
                 lmax = max(lmax, int(np.max(np.nonzero(nz)[0])))
         return lmax + 1
@@ -1343,19 +1341,23 @@ class Engine:
                 "params.atmosphere_from_reference carries one over"
             )
             raise TypeError(msg)
-        core_np = atmosphere.internal_object()
+        # the storage's arrays as they lie: [A, W], the Legendre stack
+        # [L or 4L, A, W]; the wavelength-leading core is made on the device
+        native = atmosphere.internal_object(native=True)
+        greeks = split_greeks(native["leg_coeff"], atmosphere.nstokes)
         nloc = self._geometry.num_altitudes * (
             self._geometry.num_horizontal if self._is_2d else 1)
         with spans.span("validate"):
             validate_atmosphere_core(
-                core_np, nloc, self._config.input_validation_mode,
+                {**native, "leg_coeff": greeks["leg_coeff"]}, nloc,
+                self._config.input_validation_mode,
             )
         self._brdf = atmosphere.surface.brdf
         # the route, as the JAX engine chooses it at trace time
         self._fast_route = (
             self._twostream_fast_ok() or self._polarized_fast_ok()
         )
-        self._num_azi_eff = self._effective_num_azimuth(core_np)
+        self._num_azi_eff = self._effective_num_azimuth(greeks)
         mappings = atmosphere.storage.derivative_mappings
         needs_jac = atmosphere.calculate_derivatives and (
             len(mappings) > 0 or len(atmosphere.surface.derivative_mappings) > 0
@@ -1382,7 +1384,8 @@ class Engine:
         ):
             warnings.warn(_F32_AMF_WARNING, stacklevel=2)
         with spans.span("upload") as span:
-            core = core_from_reference(core_np, self._device, self._dtype)
+            core = upload_core(native, atmosphere.nstokes, self._device,
+                               self._dtype)
             if span:
                 span.count(bytes=spans.nbytes(core.values()))
         # with a mesh, each block builds what it lacks of the lazily built

@@ -3,8 +3,11 @@ JAX package.
 
 The port has its own ``Atmosphere`` (a copy of the JAX package's numpy
 class), so a calculation's inputs are the same dict of numpy arrays in
-both packages. ``core_from_reference`` turns that dict into the port's
-tensors. ``atmosphere_from_reference`` and ``mode_tables_from_reference``
+both packages. ``upload_core`` turns the storage's arrays, as the
+atmosphere hands them over, into the engine's wavelength-leading tensors;
+``core_from_reference`` makes the same tensors from the wavelength-leading
+dict of numpy arrays that ``Atmosphere.internal_object()`` returns.
+``atmosphere_from_reference`` and ``mode_tables_from_reference``
 copy a JAX-side object's numpy state into the port's class; they read
 attributes only and import nothing of ``sasktran2_tpu``, so the parity
 tests can feed both packages the same state.
@@ -15,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .atmosphere import Atmosphere
+from .atmosphere import Atmosphere, wavelength_leading
 from .rt.brdf import KERNELS as BRDF_KERNELS
 from .rt.disco import ModeTables
 
@@ -23,11 +26,31 @@ from .rt.disco import ModeTables
 def core_from_reference(core_np: dict, device, dtype) -> dict:
     """``Atmosphere.internal_object()`` (wavelength-leading numpy arrays:
     extinction/ssa/emission [W, A], leg_coeff [W, A, L], albedo [W], ...)
-    -> the same keys as tensors of ``dtype`` on ``device``."""
+    -> the same keys as tensors of ``dtype`` on ``device``. The engine
+    uploads the native arrays instead (``upload_core``); the tests hold the
+    two equal."""
     return {
         k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
         for k, v in core_np.items()
     }
+
+
+def upload_core(native: dict, nstokes: int, device, dtype) -> dict:
+    """``Atmosphere.internal_object(native=True)``, the storage's arrays as
+    they lie ([A, W], the Legendre stack [L or 4L, A, W], ...), each copied
+    to ``device`` as ``dtype`` whole, then permuted there into the tensors
+    ``core_from_reference`` makes: the same keys, shapes, strides and
+    values, as many bytes as were sent. Every tensor is a copy, on the CPU
+    too: no later change to the atmosphere reaches a call's inputs."""
+    sent = {k: torch.tensor(np.ascontiguousarray(v), dtype=dtype,
+                            device=device)
+            for k, v in native.items()}
+    return wavelength_leading(sent, nstokes, _device_transpose)
+
+
+def _device_transpose(x, axes):
+    # the 1-D arrays and brdf_args stay the uploaded tensor: a copy too
+    return x.permute(axes).contiguous()
 
 
 def mode_tables_from_reference(tables) -> ModeTables:

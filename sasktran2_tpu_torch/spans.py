@@ -11,7 +11,9 @@ root down:
 * ``call``: ``Engine.calculate_radiance``;
 * ``atmosphere``: ``Atmosphere.internal_object``, with ``zero``,
   ``constituent`` (one per constituent and phase, counts ``key`` and
-  ``phase``: ``add`` or ``derivative``), ``normalize`` and ``layout``;
+  ``phase``: ``add`` or ``derivative``), ``normalize`` and ``layout``
+  (count ``host_bytes``, the bytes copied on the host: 0 on the engine's
+  path, which takes the storage's arrays as they lie);
 * ``validate``; ``upload`` (count ``bytes`` sent to the device);
 * ``forward``: ``Engine._outputs``, with ``los_sources``, ``do_mode``
   (one per azimuth mode solved; counts ``mode``, ``recompute`` (1 where

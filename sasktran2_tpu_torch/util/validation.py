@@ -4,7 +4,8 @@ validation.h:12-48`` + engine-level checks ``engine.cpp:431-490``).
 Modes: Strict (raise on anything suspicious, including ssa == 1 warnings
 upgraded to errors), Standard (raise on definite errors), Disabled.
 
-(Copy of ``sasktran2_tpu/util/validation.py`` for the PyTorch port.)
+(Copy of ``sasktran2_tpu/util/validation.py`` for the PyTorch port;
+``validate_atmosphere_core`` reads the storage's own layout.)
 """
 
 from __future__ import annotations
@@ -37,14 +38,16 @@ def verify_range(name, arr, lo, hi, mode):
 
 
 def validate_atmosphere_core(core: dict, nalt: int, mode):
-    """Engine-level validation of the core input pytree."""
+    """Engine-level validation of the core arrays in the storage's own
+    layout: extinction and ssa [A, W], leg_coeff the a1 greek [L, A, W]
+    (``Atmosphere.internal_object(native=True)``)."""
     if mode == InputValidationMode.Disabled:
         return
     k = np.asarray(core["extinction"])
     ssa = np.asarray(core["ssa"])
-    if k.shape[-1] != nalt:
+    if k.shape[0] != nalt:
         msg = (
-            f"extinction has {k.shape[-1]} altitude entries; the geometry "
+            f"extinction has {k.shape[0]} altitude entries; the geometry "
             f"has {nalt} grid points"
         )
         raise ValidationError(msg)
@@ -59,7 +62,7 @@ def validate_atmosphere_core(core: dict, nalt: int, mode):
     leg = np.asarray(core["leg_coeff"])
     verify_finite("leg_coeff", leg, mode)
     if mode == InputValidationMode.Strict:
-        b0 = leg[..., 0]
+        b0 = leg[0]
         scattering = ssa * k > 0
         if np.any(scattering & ~np.isclose(b0, 1.0)):
             msg = (

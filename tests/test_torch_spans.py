@@ -2,7 +2,8 @@
 record only inside a ``torch.profiler`` window, form one tree per
 ``Engine.calculate_radiance`` call with the Jacobian rows' recomputed
 azimuth modes under their rows, count the host copy's bytes, leave the
-outputs bit-identical, never synchronize the device, and stay bounded.
+outputs bit-identical, never synchronize the device, and stay bounded; the
+``layout`` span counts no bytes copied on the host on the engine's path.
 
 The case is ground16's shape at a small size: 4 streams, 11 levels,
 8 wavelengths, 4 ground-viewing rays, Rayleigh (3 azimuth modes), with
@@ -151,6 +152,20 @@ def test_copy_counts_the_host_arrays_bytes(recorded):
     assert copy.counts["bytes"] == host["nbytes"]
     (upload,) = [s for s in got if s.name == "upload"]
     assert upload.counts["bytes"] > 0
+
+
+def test_layout_copies_nothing_on_the_engines_path(case, recorded):
+    """The engine takes the storage's arrays as they lie: its ``layout``
+    span counts 0 bytes copied on the host. ``internal_object()`` called
+    plainly counts its wavelength-leading copies."""
+    _, got, _ = recorded
+    (layout,) = [s for s in got if s.name == "layout"]
+    assert layout.counts["host_bytes"] == 0
+    _, atmo = case
+    core, alone = _profiled(atmo.internal_object)
+    (layout,) = [s for s in alone if s.name == "layout"]
+    assert layout.counts["host_bytes"] == sum(v.nbytes for v in core.values())
+    assert layout.counts["host_bytes"] > 0
 
 
 def test_outputs_are_bit_identical_on_and_off(case, recorded):
